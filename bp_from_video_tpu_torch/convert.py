@@ -4,7 +4,12 @@ lists) into this package's params, so both packages compute with
 identical weights.  Every leaf keeps its dtype (bf16 leaves arrive as
 ``ml_dtypes.bfloat16`` numpy arrays and stay bf16); the packed kernel
 weights (``trunk``, ``stem_wmat``) carry over as they are, and the packed
-stem twin ``stem_p``, which only the unfused packed path reads, is dropped.
+stem twin ``stem_p``, which only the reference's ``pack_s2d`` path reads,
+is dropped.  A compiled TFLite graph's params are one flat dict and carry
+across key for key: the constants ``"{idx}:{name}"`` (integer shape
+operands included, and the stacked ``bnc_*`` weights of the chained
+bottleneck stages), the split-off stem ``__stem__:w/b/alpha`` and its
+packed matrix ``__stem_wmat__``.
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ Parameters are nested dicts of arrays in the reference package's layouts
 (conv weights HWIO), built host-side in numpy with the same random draws,
 so one seed gives identical weights in both packages.  Activations are
 planar [N, C, H, W] and every function takes the batch as its leading
-axis.  The packed-stem twin (``stem_p``) feeds only the unfused packed
-path of the reference package and is not built here; it draws no random
+axis.  The packed-stem twin (``stem_p``) feeds only the reference
+package's ``pack_s2d`` path and is not built here; it draws no random
 numbers, so skipping it leaves every other draw identical.  The segmenter
 stand-in is not ported yet (ROADMAP Queue 1 item 10).
 """
@@ -147,7 +147,15 @@ def blaze_landmark_apply(p: dict, x: Tensor, input_size: int
                          ) -> tuple[Tensor, Tensor, Tensor]:
     """Unfused landmark net on plain planar crops [B, 3, S, S] (the path
     without the fused kernels): stem, four stride-2 blocks, heads."""
-    y = torch.relu(_conv(p["stem"], x, stride=2))
+    return landmark_trunk(p, torch.relu(_conv(p["stem"], x, stride=2)),
+                          input_size)
+
+
+def landmark_trunk(p: dict, y: Tensor, input_size: int
+                   ) -> tuple[Tensor, Tensor, Tensor]:
+    """Post-stem trunk + heads as plain convolutions: y = ReLU'd stem
+    activations [B, 24, S/2, S/2] (the fused stem kernel K2 feeds this
+    when the fused trunk is off)."""
     for name in ("b1", "b2", "b3", "b4"):
         y = _blaze_block(p[name], y, stride=2)
     return landmark_heads(p, y, input_size)

@@ -38,7 +38,10 @@ def decode(cfg: DecodeConfig, regressors: Tensor, logits: Tensor,
            anchors: Tensor) -> RawDetections:
     """Decode SSD regressors [B, A, D] and logits [B, A, 1] against
     fixed-size anchors [A, 2] (centers; w = h = 1)."""
-    s = cfg.input_size
+    # A tensor divisor: CUDA turns a division by a Python scalar into a
+    # multiplication by its reciprocal, an ulp off the IEEE quotient.
+    s = torch.full((), float(cfg.input_size), dtype=torch.float32,
+                   device=regressors.device)
     b, a = regressors.shape[0], anchors.shape[0]
     raw = regressors.reshape(b, a, -1)
     cx = raw[..., 0] / s + anchors[:, 0]

@@ -6,17 +6,26 @@ stream batch, with the tracking state carried explicitly.
 
 Main path (``use_pallas``, ``fused_stem``, ``fused_trunk``, uint8 frames,
 cover rotation): one K1 launch crops every landmark crop of every stream
-2x2-packed and pre-scaled, one K3 launch per net runs its 3x3/2 stem, four
-K3 launches per net run its trunk, then the dense heads.  Without
-``use_pallas`` the crops are plain separable resamples and the nets run as
-plain convolutions.  The detectors sit behind one batch-level host branch
-(a device-to-host sync per step while any stream needs detection is
-checked).
+2x2-packed and pre-scaled, one K3 launch per net runs its 3x3/2 stem, then
+a stand-in's trunk is four K3 launches and its dense heads, and a compiled
+TFLite graph runs once for the whole batch with its bottleneck stages as
+K6 (or K5) launches.  With ``fused_stem`` alone the stem is one K2 launch
+per net and the trunk plain convolutions.  Without ``use_pallas`` the crops
+are plain separable resamples and the nets run as plain convolutions.  The
+detectors sit behind one batch-level host branch (a device-to-host sync per
+step while any stream needs detection is checked).
 
-Not ported yet (they raise ``NotImplementedError``): real TFLite weights
-(ROADMAP Queue 1 item 8), the standalone face detector, the segmenter and
-the rotated crop modes (item 10), the fused stem without the fused trunk
-(kernel K2) and packed crops without the fused stem.
+A landmark net is a compiled TFLite graph when its ``.task`` bundle
+resolves (parsed with TensorFlow) or when ``graphs`` hands the runner an
+already parsed ``tflite_compiler.Graph`` for its key (``"flm_lm"``,
+``"hand_lm"``) — the one keyword the reference runner does not have, for
+machines without TensorFlow.  A compiled graph is always compiled
+``batch_flexible``: the reference maps a batch-1 graph over the crops, the
+port feeds the batch.
+
+Not ported yet (they raise ``NotImplementedError``): compiled detectors,
+the standalone face detector, the segmenter, the rotated crop modes,
+``pack_s2d`` and ``fuse_dw_pw`` (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -33,9 +42,11 @@ import torch
 from bp_from_video_tpu_torch import resolve_device
 from bp_from_video_tpu_torch.config import InferenceConfig, RunningMode
 from bp_from_video_tpu_torch.kernels import block as block_kernel
+from bp_from_video_tpu_torch.kernels import stem as stem_kernel
 from bp_from_video_tpu_torch.kernels import warp as warp_kernel
 from bp_from_video_tpu_torch.models import anchors as anchors_lib
 from bp_from_video_tpu_torch.models import blaze, detection, warp
+from bp_from_video_tpu_torch.models import tflite_compiler as tc
 from bp_from_video_tpu_torch.ops.roi import Detections, is_planar_frames
 
 Tensor = torch.Tensor
@@ -155,14 +166,17 @@ def _to_torch(tree, device, dtype=None):
 
 
 class InferenceRunner:
-    """Builds the model set (stand-in weights, packed kernel weights) once
-    and exposes ``predict_batch`` / ``predict``.  ``device=None`` means
-    ``"cuda"`` (raises without CUDA); pass ``device="cpu"`` for the plain
-    versions of the kernels."""
+    """Builds the model set (stand-in or compiled weights, packed kernel
+    weights) once and exposes ``predict_batch`` / ``predict``.
+    ``device=None`` means ``"cuda"`` (raises without CUDA); pass
+    ``device="cpu"`` for the plain versions of the kernels.  ``graphs``:
+    optional {"flm_lm" / "hand_lm": parsed ``Graph`` or .tflite bytes},
+    taking the place of the bundle's landmark blob."""
 
     def __init__(self, cfg: InferenceConfig, frame_height: int,
                  frame_width: int, asset_dir: str | None = None,
-                 dtype=torch.float32, device=None) -> None:
+                 dtype=torch.float32, device=None,
+                 graphs: dict | None = None) -> None:
         self.cfg = cfg
         self.h, self.w = frame_height, frame_width
         self.dtype = dtype
@@ -175,22 +189,20 @@ class InferenceRunner:
             raise NotImplementedError(
                 f"rotation_mode {cfg.resolved_rotation_mode()!r}: not ported "
                 "yet (ROADMAP Queue 1 item 10)")
-        self._fused = cfg.use_pallas and cfg.fused_stem and cfg.fused_trunk
-        if cfg.use_pallas and not self._fused and (cfg.fused_stem
-                                                   or cfg.pack_s2d):
+        if cfg.pack_s2d or cfg.fuse_dw_pw:
             raise NotImplementedError(
-                "packed crops without the fused stem+trunk (kernel K2, the "
-                "packed stem twin): not ported yet (ROADMAP Queue 2)")
-        if cfg.fuse_dw_pw:
-            raise NotImplementedError(
-                "fuse_dw_pw applies to compiled TFLite graphs: not ported "
-                "yet (ROADMAP Queue 1 item 8)")
+                "pack_s2d (the packed stem twin, space_to_depth_pack) and "
+                "fuse_dw_pw: not ported (ROADMAP Queue 1 item 10)")
         self.params: dict[str, Any] = {}
         self.sizes: dict[str, int] = {}
         self._trunk_specs: dict[str, tuple] = {}
-        self._stem_wspec: dict[str, str] = {}
+        # Nets with a fused stem (fed 2x2-packed crops): where its weights
+        # are and, with the fused trunk, its packed K3 matrix.
+        self._stem_src: dict[str, dict] = {}
+        self._graph_fns: dict[str, Any] = {}    # compiled nets, batched
         self.real_weights: dict[str, bool] = {}
         self.trained_standin: dict[str, bool] = {}
+        graphs = dict(graphs or {})
         asset_dir = asset_dir or "."
         repo_root = os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))
@@ -204,12 +216,11 @@ class InferenceRunner:
                     return cand
             return None
 
-        for flag, path in ((cfg.face_landmarker, cfg.face_landmarker_path),
-                           (cfg.hand_landmarker, cfg.hand_landmarker_path)):
-            if flag and resolve(path):
-                raise NotImplementedError(
-                    f"{resolve(path)!r}: real TFLite weights need the TFLite "
-                    "compiler, not ported yet (ROADMAP Queue 1 item 8)")
+        def bundle(path, is_det, is_lm):
+            """(detector blob, landmark blob) of a resolved .task bundle."""
+            blobs = tc.load_task_bundle(path) if path else {}
+            return (next((v for k, v in blobs.items() if is_det(k)), None),
+                    next((v for k, v in blobs.items() if is_lm(k)), None))
 
         # Built once: a tensor made from host values per step would be a
         # host-to-device copy, which synchronizes the stream.
@@ -221,13 +232,24 @@ class InferenceRunner:
         self.palm_anchors = torch.from_numpy(anchors_lib.generate_anchors(
             anchors_lib.PALM)).to(self.device)
         if cfg.face_landmarker:
-            self._load_detector("flm_det", 128, 896, NUM_FACE_DET_KPS)
-            self._load_landmark("flm_lm", 256, NUM_FACE_LANDMARKS)
+            det, lm = bundle(resolve(cfg.face_landmarker_path),
+                             lambda k: k == "face_detector.tflite",
+                             lambda k: k == "face_landmarks_detector.tflite")
+            self._load_detector("flm_det", det, 128, 896, NUM_FACE_DET_KPS)
+            self._load_landmark("flm_lm", graphs.pop("flm_lm", lm), 256,
+                                NUM_FACE_LANDMARKS)
         if cfg.hand_landmarker:
-            self._load_detector("palm_det", 192, 2016, NUM_PALM_KPS,
+            det, lm = bundle(resolve(cfg.hand_landmarker_path),
+                             lambda k: "palm" in k,
+                             lambda k: "landmark" in k and "palm" not in k)
+            self._load_detector("palm_det", det, 192, 2016, NUM_PALM_KPS,
                                 resolve(cfg.palm_det_standin_path))
-            self._load_landmark("hand_lm", 224, NUM_HAND_LANDMARKS,
+            self._load_landmark("hand_lm", graphs.pop("hand_lm", lm), 224,
+                                NUM_HAND_LANDMARKS,
                                 resolve(cfg.hand_lm_standin_path))
+        if graphs:
+            raise ValueError(f"graphs for models not enabled: "
+                             f"{sorted(graphs)}")
 
     # -- model loading ---------------------------------------------------
 
@@ -263,8 +285,12 @@ class InferenceRunner:
         cand.pop("stem_p", None)
         return cand
 
-    def _load_detector(self, key, size, num_anchors, num_kps,
+    def _load_detector(self, key, blob, size, num_anchors, num_kps,
                        standin_path=None):
+        if blob is not None:
+            raise NotImplementedError(
+                f"model {key!r}: compiled TFLite detectors are not ported "
+                "yet (ROADMAP Queue 1 item 10)")
         box_dim = 4 + 2 * num_kps
         params = self._load_trained_standin(
             key, standin_path,
@@ -278,7 +304,16 @@ class InferenceRunner:
         self.params[key] = _to_torch(params, self.device, self.dtype)
         self.sizes[key] = size
 
-    def _load_landmark(self, key, size, num_landmarks, standin_path=None):
+    def _load_landmark(self, key, graph, size, num_landmarks,
+                       standin_path=None):
+        """A landmark net from a compiled TFLite graph (``graph``: parsed
+        ``Graph`` or .tflite bytes) or, when None, a blaze stand-in."""
+        want_stem = self.cfg.fused_stem and self.cfg.use_pallas
+        fused_trunk = self.cfg.fused_trunk and want_stem
+        if graph is not None:
+            self._load_compiled_landmark(key, graph, num_landmarks,
+                                         want_stem, fused_trunk)
+            return
         g = size // 32
         params = self._load_trained_standin(
             key, standin_path,
@@ -290,10 +325,13 @@ class InferenceRunner:
                                                num_landmarks)
         p = _to_torch(params, self.device, self.dtype)
         self.sizes[key] = size
-        if self._fused:
+        if want_stem:
+            self._stem_src[key] = {"kind": "standin"}
+        if fused_trunk:
             # Each dw+pw block composes into its dense twin; the stem and
             # trunk window-matrix weights are packed host-side from the raw
-            # f32 params (bf16 matrices, f32 block biases).
+            # f32 params (bf16 matrices, f32 block biases).  The stem runs
+            # through the same kernel (K3) instead of K2.
             arrays, specs = block_kernel.prepare_trunk(params)
             p["trunk"] = [{"wmat": _to_torch(a["wmat"], self.device,
                                              torch.bfloat16),
@@ -303,8 +341,82 @@ class InferenceRunner:
             wmat, wspec = block_kernel.pack_block_weights(
                 params["stem"]["w"], cin=3)
             p["stem_wmat"] = _to_torch(wmat, self.device, torch.bfloat16)
-            self._stem_wspec[key] = wspec
+            self._stem_src[key].update(wmat_key="stem_wmat", wspec=wspec)
         self.params[key] = p
+
+    def _load_compiled_landmark(self, key, graph, num_landmarks, want_stem,
+                                fused_trunk):
+        """Compile a landmark graph: with the fused stem its leading 3x3/2
+        conv (+PReLU) is split off and runs as a stem kernel on the packed
+        crops; with the fused trunk as well its bottleneck units fuse into
+        K5/K6 ops (``fused_bn_min_hw`` gates them by spatial size) and the
+        split-off stem goes through K3."""
+        self.real_weights[key] = True
+        if isinstance(graph, (bytes, bytearray)):
+            graph = tc.parse_tflite(bytes(graph))
+        fn, params = tc.compile_graph(
+            graph, self.dtype, layout="NCHW", planar_inputs=True,
+            external_stem=want_stem, fuse_bn=fused_trunk,
+            fuse_bn_min_hw=self.cfg.fused_bn_min_hw, batch_flexible=True,
+            device=self.device)
+        stem_meta = getattr(fn, "external_stem_meta", None)
+        if stem_meta is not None:
+            size = stem_meta["in_size"]
+            self._stem_src[key] = {"kind": "external",
+                                   "params": stem_meta["params"]}
+            w_stem = params[stem_meta["params"]["w"]]      # HWIO
+            if fused_trunk and w_stem.shape[0] == 3:
+                wmat, wspec = block_kernel.pack_block_weights(
+                    w_stem.to(torch.float32).cpu().numpy(),
+                    cin=w_stem.shape[2])
+                params["__stem_wmat__"] = _to_torch(wmat, self.device,
+                                                    torch.bfloat16)
+                self._stem_src[key].update(wmat_key="__stem_wmat__",
+                                           wspec=wspec)
+        else:
+            size = fn.input_shapes[0][1]
+
+        # Output roles are resolved by size plus, when two outputs could
+        # hold the landmarks, a one-time probe: converters order outputs
+        # arbitrarily, and the world landmarks ([L, 3] metric, |v| < ~1)
+        # in place of the screen landmarks (crop pixels) would zero the
+        # pipeline.  The probe is a mid-gray forward pass of a plain f32
+        # compile on the CPU; the passes never reorder graph outputs.
+        sizes = [int(np.prod(s)) for s in fn.output_shapes]
+        cands = [i for i, n in enumerate(sizes) if n >= 3 * num_landmarks]
+        if not cands:
+            raise ValueError(
+                f"model {key!r}: no output holds >= {3 * num_landmarks} "
+                f"values (output sizes: {sizes})")
+        lm_idx = cands[0]
+        if len(cands) > 1:
+            pfn, pparams = tc.compile_graph(graph, torch.float32,
+                                            layout="NCHW", planar_inputs=True,
+                                            device="cpu")
+            ish = pfn.input_shapes[0]       # reported NHWC; takes planar
+            outs = pfn(pparams, torch.full((ish[0], ish[3], ish[1], ish[2]),
+                                           0.5))
+            lm_idx = max(cands, key=lambda i: float(outs[i].abs().mean()))
+        # Scalar roles (presence first, then handedness / tongueOut) follow
+        # graph output order, the contract of every shipped bundle.
+        scalar_idx = [i for i, n in enumerate(sizes) if n == 1]
+
+        def apply_batch(p, x, nl=num_landmarks, li=lm_idx,
+                        si=tuple(scalar_idx)):
+            outs = fn(p, x)
+            b = x.shape[0]
+            flat = [o.reshape(b, -1) for o in outs]
+            lm = flat[li][:, : 3 * nl]
+            presence = (flat[si[0]][:, 0] if si else
+                        torch.ones((b,), dtype=torch.float32,
+                                   device=x.device))
+            aux = (flat[si[1]][:, 0] if len(si) > 1 else
+                   torch.zeros((b,), dtype=torch.float32, device=x.device))
+            return lm, presence, aux
+        apply_batch.graph = fn.graph
+        self.params[key] = params
+        self.sizes[key] = size
+        self._graph_fns[key] = apply_batch
 
     # -- state ---------------------------------------------------------------
 
@@ -430,27 +542,79 @@ class InferenceRunner:
             rects, valid = det_batch(nhwc_at(None))
         return rects, valid, torch.zeros_like(age)
 
+    def _stem_operands(self, key: str, params):
+        """(w HWIO, bias, PReLU slopes or None) of a net's stem."""
+        src = self._stem_src[key]
+        if src["kind"] == "standin":
+            return params["stem"]["w"], params["stem"]["b"], None
+        pk = src["params"]
+        return params[pk["w"]], params[pk["b"]], params[pk["alpha"]]
+
     def _fused_stem_batch(self, key: str, params, crops_packed: Tensor
                           ) -> Tensor:
         """Stem activations of packed crops [B, 12, S/2, S/2] ->
-        [B, 24, S/2, S/2]: one K3 launch in its stem flavor."""
-        return block_kernel.dense_s2_block(
-            crops_packed, params["stem_wmat"], self._stem_wspec[key],
-            params["stem"]["b"], None, cin=3, resid=False)
+        [B, O, S/2, S/2]: with the fused trunk one K3 launch in its stem
+        flavor, otherwise one K2 launch."""
+        src = self._stem_src[key]
+        w, bi, al = self._stem_operands(key, params)
+        wkey = src.get("wmat_key")
+        if wkey is not None:
+            return block_kernel.dense_s2_block(
+                crops_packed, params[wkey], src["wspec"], bi, al,
+                cin=w.shape[2], resid=False)
+        return stem_kernel.stem_packed(crops_packed, w, bi, al)
 
     def _fused_trunk_batch(self, key: str, params, stems: Tensor
                            ) -> tuple[Tensor, Tensor]:
-        """Trunk (four K3 launches) + heads over a batch of stem
-        activations -> (landmarks [B, 3L], presence f32 [B])."""
-        feats = block_kernel.trunk_apply(params["trunk"],
-                                         self._trunk_specs[key], stems)
-        lm, presence, _aux = blaze.landmark_heads(params, feats,
-                                                  self.sizes[key])
-        return lm, presence[:, 0].to(torch.float32)
+        """Whole trunk + heads over a batch of stem activations ->
+        (landmarks [B, 3L], presence f32 [B]).  Stand-ins: four K3 launches
+        and the dense heads; compiled graphs: one call for the whole batch,
+        its fused stages seeing the full batch in one launch each."""
+        if key in self._trunk_specs:
+            feats = block_kernel.trunk_apply(params["trunk"],
+                                             self._trunk_specs[key], stems)
+            lm, presence, _aux = blaze.landmark_heads(params, feats,
+                                                      self.sizes[key])
+            return lm, presence[:, 0].to(torch.float32)
+        lm, presence, _aux = self._graph_fns[key](params, stems)
+        return lm, presence.to(torch.float32)
+
+    def _landmark_from_stem(self, key: str, params, stems: Tensor
+                            ) -> tuple[Tensor, Tensor]:
+        """Post-stem trunk as plain convolutions (the fused stem without
+        the fused trunk) -> (landmarks [B, 3L], presence f32 [B])."""
+        if self._stem_src[key]["kind"] == "standin":
+            lm, presence, _aux = blaze.landmark_trunk(params, stems,
+                                                      self.sizes[key])
+            return lm, presence[:, 0].to(torch.float32)
+        lm, presence, _aux = self._graph_fns[key](params, stems)
+        return lm, presence.to(torch.float32)
+
+    def _landmark_from_crop(self, key: str, params, crops: Tensor
+                            ) -> tuple[Tensor, Tensor]:
+        """Net on plain, already scaled planar crops [B, 3, S, S] (no
+        packed crops: float frames, or ``use_pallas`` off)."""
+        crops = crops.to(self.dtype)
+        if key not in self._graph_fns:
+            lm, presence, _aux = blaze.blaze_landmark_apply(
+                params, crops, self.sizes[key])
+            return lm, presence[:, 0].to(torch.float32)
+        if key in self._stem_src:
+            # The compiled graph was re-rooted at its stem's output: run
+            # the stem here as a plain conv (+PReLU) before entering it.
+            w, bi, al = self._stem_operands(key, params)
+            y = blaze._conv({"w": w, "b": bi}, crops, stride=2)
+            al = al.to(y.dtype).reshape(-1, 1, 1)
+            return self._landmark_from_stem(
+                key, params, torch.where(y >= 0, y, al * y))
+        lm, presence, _aux = self._graph_fns[key](params, crops)
+        return lm, presence.to(torch.float32)
 
     def _project_lm(self, key: str, lm: Tensor, rect: Tensor) -> Tensor:
         """Raw landmark vectors [..., 3L] -> frame pixels [..., L, 2]."""
-        size = self.sizes[key]
+        # A tensor divisor (IEEE f32 on the card as on the CPU).
+        size = torch.full((), float(self.sizes[key]), dtype=torch.float32,
+                          device=lm.device)
         pts = lm.to(torch.float32).reshape(lm.shape[:-1] + (-1, 3)
                                            )[..., :2] / size
         return warp.project_landmarks(pts, warp.arr_rect(rect))
@@ -459,12 +623,14 @@ class InferenceRunner:
                    nhwc_at, rects_cover: Tensor) -> tuple[Tensor, Tensor]:
         """Landmark net over a batch of crops -> (raw landmarks [B, 3L],
         presence f32 [B]).  ``crops``: K1's packed, pre-scaled crops
-        [B, 12, S/2, S/2] (fused path), K1's plain pre-scaled crops
-        [B, 3, S, S], or None: crop the cover rects [B, 5] of the frames
-        ``nhwc_at(None)`` here."""
-        if crops is not None and self._fused:
+        [B, 12, S/2, S/2] (nets with a fused stem), K1's plain pre-scaled
+        crops [B, 3, S, S], or None: crop the cover rects [B, 5] of the
+        frames ``nhwc_at(None)`` here."""
+        if crops is not None and key in self._stem_src:
             stems = self._fused_stem_batch(key, params, crops)
-            return self._fused_trunk_batch(key, params, stems)
+            if self.cfg.fused_trunk:
+                return self._fused_trunk_batch(key, params, stems)
+            return self._landmark_from_stem(key, params, stems)
         if crops is None:
             frames = nhwc_at(None)
             n = rects_cover.shape[0] // frames.shape[0]
@@ -473,9 +639,7 @@ class InferenceRunner:
             crop = warp.crop_rect(frames, warp.arr_rect(rects_cover),
                                   self.sizes[key])
             crops = crop.permute(0, 3, 1, 2) / 255.0
-        lm, presence, _aux = blaze.blaze_landmark_apply(
-            params, crops.to(self.dtype), self.sizes[key])
-        return lm, presence[:, 0].to(torch.float32)
+        return self._landmark_from_crop(key, params, crops)
 
     # -- predict -------------------------------------------------------------
 
@@ -555,30 +719,28 @@ class InferenceRunner:
         face_crops = hand_crops = None
         if (self.cfg.use_pallas and frames_rgb.dtype == torch.uint8
                 and (face_cover is not None or hand_cover is not None)):
-            pack = 2 if self._fused else 1
-            sizes, parts = [], []
+            sizes, packs, parts = [], [], []
             if face_cover is not None:
                 sizes.append(self.sizes["flm_lm"])
+                packs.append(2 if "flm_lm" in self._stem_src else 1)
                 parts.append(face_cover[:, None, :4])
             if hand_cover is not None:
-                sizes += [self.sizes["hand_lm"]] * hand_cover.shape[1]
+                nh = hand_cover.shape[1]
+                sizes += [self.sizes["hand_lm"]] * nh
+                packs += [2 if "hand_lm" in self._stem_src else 1] * nh
                 parts.append(hand_cover[..., :4])
             planar = (frames_rgb if planar_in
                       else frames_rgb.permute(0, 3, 1, 2).contiguous())
             outs = warp_kernel.multi_crop(
                 planar, torch.cat(parts, 1).contiguous(), tuple(sizes),
                 dtype=self.dtype, out_dtype=self.dtype, scale=1.0 / 255.0,
-                pack=pack)
+                pack=tuple(packs))
             i = 0
             if face_cover is not None:
                 face_crops = outs[0]
                 i = 1
             if hand_cover is not None:
                 hand_crops = torch.stack(outs[i:], 1).flatten(0, 1)
-        elif self.cfg.use_pallas and self._fused:
-            raise NotImplementedError(
-                "fused landmark path on non-uint8 frames needs the packed "
-                "stem twin: not ported yet (ROADMAP Queue 2, K2)")
 
         if self.cfg.face_landmarker:
             lm, presences = self._landmarks("flm_lm", params["flm_lm"],

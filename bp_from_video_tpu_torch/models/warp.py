@@ -205,6 +205,43 @@ def resize_bilinear(image: Tensor, out_h: int, out_w: int,
     return resample_separable(image, ys, xs, dtype=dtype, mode="edge")
 
 
+def _resize_mm(x: Tensor, out_h: int, out_w: int, specs: tuple[str, str],
+               h: int, w: int, dtype, out_dtype) -> Tensor:
+    """Half-pixel bilinear resize as two contractions against edge-clamped
+    interpolation matrices (TFLite RESIZE_BILINEAR half-pixel semantics,
+    no antialiasing on downscale).  Operands and the row-pass result are
+    rounded to ``dtype``, sums are f32; integer inputs are rounded."""
+    floating = x.is_floating_point()
+    if dtype is None:
+        dtype = x.dtype if floating else torch.float32
+    dev = x.device
+    f32 = torch.float32
+    ys = (torch.arange(out_h, dtype=f32, device=dev) + 0.5) * (h / out_h) - 0.5
+    xs = (torch.arange(out_w, dtype=f32, device=dev) + 0.5) * (w / out_w) - 0.5
+    wy = _round(interp_matrix(ys, h, "edge"), dtype)            # [oh, H]
+    wx = _round(interp_matrix(xs, w, "edge"), dtype)            # [ow, W]
+    t = _round(torch.einsum(specs[0], _round(x.to(f32), dtype), wy), dtype)
+    out = torch.einsum(specs[1], t, wx)
+    if not floating:
+        out = torch.round(out)
+    return out.to(x.dtype if out_dtype is None else out_dtype)
+
+
+def resize_bilinear_planar(x: Tensor, out_h: int, out_w: int, dtype=None,
+                           out_dtype=None) -> Tensor:
+    """Half-pixel bilinear resize over the last two axes ([..., H, W], the
+    planar activation layout); ``out_dtype`` keeps the f32 sums."""
+    return _resize_mm(x, out_h, out_w, ("...hw,oh->...ow", "...hw,pw->...hp"),
+                      x.shape[-2], x.shape[-1], dtype, out_dtype)
+
+
+def resize_bilinear_nhwc(x: Tensor, out_h: int, out_w: int, dtype=None,
+                         out_dtype=None) -> Tensor:
+    """``resize_bilinear_planar`` for NHWC batches [B, H, W, C]."""
+    return _resize_mm(x, out_h, out_w, ("bhwc,oh->bowc", "bhwc,pw->bhpc"),
+                      x.shape[1], x.shape[2], dtype, out_dtype)
+
+
 def unletterbox_points(pts_norm: Tensor, lb: Letterbox, out_size: int
                        ) -> Tensor:
     """Detector outputs (normalized letterbox coords [..., 2]) -> frame

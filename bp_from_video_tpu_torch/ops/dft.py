@@ -49,7 +49,10 @@ def _irfft_mats(n: int, out_len: int, device) -> tuple[Tensor, Tensor]:
         w[0] = 1.0
         if n % 2 == 0:
             w[-1] = 1.0
-        _CACHE[key] = (w * torch.cos(ang) / n, -w * torch.sin(ang) / n)
+        # Divided by a tensor: CUDA turns a division by a Python scalar into
+        # a multiplication by its reciprocal, an ulp off the IEEE quotient.
+        nt = torch.full((), float(n), dtype=torch.float32, device=device)
+        _CACHE[key] = (w * torch.cos(ang) / nt, -w * torch.sin(ang) / nt)
     return _CACHE[key]
 
 

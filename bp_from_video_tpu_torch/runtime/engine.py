@@ -80,10 +80,11 @@ def _group_range(xs: Tensor, ys: Tensor) -> Tensor:
 
 class Engine:
     """Builds the runner for a static EngineConfig; ``device=None`` means
-    ``"cuda"`` (raises without CUDA unless ``device="cpu"``)."""
+    ``"cuda"`` (raises without CUDA unless ``device="cpu"``).  ``graphs``
+    goes to the runner unchanged (already parsed landmark graphs)."""
 
     def __init__(self, config: EngineConfig, asset_dir: str | None = None,
-                 device=None):
+                 device=None, graphs: dict | None = None):
         self.config = config
         self.device = resolve_device(device)
         self.runner = InferenceRunner(
@@ -91,7 +92,7 @@ class Engine:
             asset_dir=asset_dir,
             dtype=(torch.bfloat16 if config.compute_dtype == "bfloat16"
                    else torch.float32),
-            device=self.device)
+            device=self.device, graphs=graphs)
         self.params = self.runner.params
         self._pairs = list(itertools.combinations(
             range(config.signal.num_signals), 2))

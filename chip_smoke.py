@@ -6,20 +6,30 @@ Phases (each fatal on failure):
 
 1. build the hand-written CUDA kernels from ``bp_from_video_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together);
-2. hold each kernel against its plain PyTorch version on the card at the
-   flagship shapes (64 streams of 480x640, bf16), and time the kernel, the
-   plain version and a one-call PyTorch yardstick with CUDA events;
+2. hold each of the six kernels against its plain PyTorch version on the
+   card at the flagship shapes (64 streams of 480x640, bf16; K5/K6 at all
+   seven face-mesh stage shapes), and time the kernel, the plain version
+   and a PyTorch yardstick with CUDA events;
 3. run the flagship ``Engine.batch_step`` (``flagship_config()``) over a
    synthetic pulsing clip long enough to fill the 250-sample ring, with the
-   kernels' launch counters set to 0 just before and read just after;
+   kernels' launch counters set to 0 just before and read just after:
+   (3) with stand-in landmark nets; (3b) with the face landmark net a
+   compiled TFLite graph (``compile_graph(face_mesh_graph(seed))``: its
+   128x128 stage is one K6 launch); (3c) the same with ``fused_trunk`` off
+   (both stems through K2), then a few steps with every stage fused
+   (``fused_bn_min_hw=0``: 7 K6 launches); (3d) a mesh graph whose first
+   stage has one unit, which compiles to a lone fused unit (K5), against
+   the same graph compiled unfused;
 4. run a small f32 config on the card and on the CPU (plain versions) over
-   the same clip: BPM equal, PTT within one sample period.
+   the same clip, with stand-ins and with a compiled face graph: BPM equal,
+   PTT within one sample period.
 
 Prints the card's name and power limit first, one JSON line with every
 kernel's numbers before the last line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
-``--profile DIR`` also traces a few flagship steps with ``torch.profiler``
-(kernel time by name, device busy share) and writes the trace to DIR.
+``--profile DIR`` also traces a few flagship steps of phases 3 and 3b with
+``torch.profiler`` (kernel time by name, device busy share) and writes the
+traces to DIR.
 """
 
 from __future__ import annotations
@@ -110,13 +120,12 @@ def _logit(p):
     return np.log(p / (1.0 - p)).astype(np.float32)
 
 
-def template_heads(params: dict) -> dict:
-    """Landmark heads that put every landmark at a fixed place in its crop
-    (zero readout weights, the place in the bias) and report presence, so
-    the trackers hold still on the synthetic clip.  Face: a grid over the
-    middle 2/3 of the crop, eye corners level; hand: wrist low,
+def _template_points() -> dict:
+    """Fixed landmark places in normalized crop coordinates.  Face: a grid
+    over the middle 2/3 of the crop, eye corners level; hand: wrist low,
     middle-finger knuckle high."""
     rng = np.random.default_rng(11)
+    out = {}
     for key, n, lo, hi, fixed in (
             ("flm_lm", 478, (1 / 6, 1 / 6), (5 / 6, 5 / 6),
              {33: (0.3, 0.4), 263: (0.7, 0.4), 151: (0.5, 0.3)}),
@@ -127,6 +136,16 @@ def template_heads(params: dict) -> dict:
         pts[-2, :2], pts[-1, :2] = lo, hi       # the bbox corners
         for i, xy in fixed.items():
             pts[i, :2] = xy
+        out[key] = pts
+    return out
+
+
+def template_heads(params: dict, keys=("flm_lm", "hand_lm")) -> dict:
+    """Stand-in landmark heads that put every landmark at a fixed place in
+    its crop (zero readout weights, the place in the bias) and report
+    presence, so the trackers hold still on the synthetic clip."""
+    for key in keys:
+        pts = _template_points()[key]
         p = params[key]
         p["head_lm"]["w"] = torch.zeros_like(p["head_lm"]["w"])
         p["head_lm"]["b"] = torch.from_numpy(_logit(pts.reshape(-1))).to(
@@ -135,6 +154,23 @@ def template_heads(params: dict) -> dict:
         p["head_presence"]["b"] = torch.full_like(p["head_presence"]["b"],
                                                   8.0)
     return params
+
+
+def template_mesh(graph):
+    """The same for a face-mesh ``Graph`` (edited in place, returned): its
+    landmark conv gets zero weights and the template in crop pixels as
+    bias, its presence logit 8.  The trunk still runs at full width; only
+    the readout ignores it."""
+    prod = {t: op for op in graph.ops for t in op.outputs}
+    size = graph.tensors[graph.inputs[0]].shape[1]
+    lm = prod[graph.outputs[0]]
+    logit = prod[prod[graph.outputs[1]].inputs[0]]
+    pts = _template_points()["flm_lm"] * size
+    for op, bias in ((lm, pts.reshape(-1)), (logit, [8.0])):
+        w, b = graph.tensors[op.inputs[1]], graph.tensors[op.inputs[2]]
+        w.data = np.zeros_like(w.data)
+        b.data = np.asarray(bias, np.float32)
+    return graph
 
 
 def tracked_state(engine, h: int, w: int, tracked: torch.Tensor):
@@ -262,7 +298,7 @@ def check_dense_s2_block(engine, gen, dev, s: int = 64):
         p, size = params[key], runner.sizes[key]
         x = torch.rand((bsz, 12, size // 2, size // 2), generator=gen,
                        device=dev).to(torch.bfloat16)
-        layers = [("stem", p["stem_wmat"], runner._stem_wspec[key],
+        layers = [("stem", p["stem_wmat"], runner._stem_src[key]["wspec"],
                    p["stem"]["b"], 3, False)]
         layers += [(f"b{i + 1}", blk["wmat"], spec, blk["b"], cin, True)
                    for i, (blk, (spec, cin)) in enumerate(
@@ -381,13 +417,209 @@ def check_roi_sums(gen, dev, s: int = 64):
                 bound_ms=b, bound_by=by, library_ms=lib)
 
 
+def check_stem_packed(gen, dev, s: int = 64):
+    """K2 at the two flagship stem shapes: the face mesh's (64 crops of 256,
+    16 channels, PReLU) and the hand stand-in's (128 crops of 224, 24
+    channels, ReLU)."""
+    from bp_from_video_tpu_torch.kernels import stem as sk
+    tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0, flops=0)
+    errs = []
+    for name, bsz, size, cout, prelu in (("face", s, 256, 16, True),
+                                         ("hand", 2 * s, 224, 24, False)):
+        half = size // 2
+        crops = torch.rand((bsz, 12, half, half), generator=gen,
+                           device=dev).to(torch.bfloat16)
+        w = (torch.randn((3, 3, 3, cout), generator=gen, device=dev)
+             * (2.0 / 27) ** 0.5).to(torch.bfloat16)
+        b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+        alpha = (torch.rand((cout,), generator=gen, device=dev) * 0.3
+                 if prelu else None)
+        got = sk.stem_packed(crops, w, b, alpha)
+        want = sk.stem_packed_plain(crops, w, b, alpha)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        # Both take the taps in one order with every multiply and add
+        # rounded on its own: the tolerance is zero.
+        log(f"K2 stem_packed {name} x{tuple(crops.shape)} cout {cout}: "
+            f"max_abs_err {err:.3g} (tol 0: bit-equal)")
+        if err != 0.0:
+            fail(f"stem_packed ({name}) disagrees with its plain version")
+        errs.append(err)
+        wc = w.permute(3, 2, 0, 1).contiguous()
+        xu = torch.nn.functional.pad(_unpack_s2d(crops), (0, 1, 0, 1))
+        bc = b.to(torch.bfloat16)
+
+        def library(xu=xu, wc=wc, bc=bc, alpha=alpha):
+            y = torch.nn.functional.conv2d(xu, wc, bc, stride=2)
+            return (torch.relu(y) if alpha is None else
+                    torch.nn.functional.prelu(y, alpha.to(y.dtype)))
+        ms = time_ms(lambda: sk.stem_packed(crops, w, b, alpha))
+        pl = time_ms(lambda: sk.stem_packed_plain(crops, w, b, alpha),
+                     reps=3, inner=2, warm=1)
+        lib = time_ms(library)
+        nbytes = (crops.numel() + got.numel()) * 2 + w.numel() * 2 + cout * 8
+        flops = 2.0 * bsz * cout * 27 * half * half
+        bnd, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+        log(f"K2 {name} times: kernel {ms:.4f} ms, plain {pl:.4f} ms, "
+            f"conv2d+act {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+        for k, v in (("ms", ms), ("plain", pl), ("lib", lib),
+                     ("bytes", nbytes), ("flops", flops)):
+            tot[k] += v
+    b, by = bound_ms(tot["bytes"], tot["flops"], BF16_TENSOR_FLOPS)
+    log(f"K2 per step (2 launches): kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain']:.4f} ms, conv2d+act {tot['lib']:.4f} ms, bound "
+        f"{b:.4f} ms ({by})")
+    return dict(name="stem_packed", route="cuda",
+                source="bp_from_video_tpu_torch/csrc/stem_packed.cu",
+                replaces="bp_from_video_tpu/pallas/stem_kernel.py:136",
+                max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain"],
+                bound_ms=b, bound_by=by, library_ms=tot["lib"])
+
+
+# The face mesh's seven stages: (spatial size, C, D).
+MESH_STAGES = ((128, 16, 8), (64, 32, 16), (32, 64, 32), (16, 128, 64),
+               (8, 128, 64), (4, 128, 64), (2, 128, 64))
+
+
+def _bn_operands(rng, units, c, d, cout, dev):
+    """Stacked packed operands of ``units`` bottleneck units (bf16 weights,
+    f32 biases and slopes) and their raw conv weights for the yardstick."""
+    from bp_from_video_tpu_torch.kernels import bottleneck as bn
+    raw = [(rng.standard_normal((1, 1, c, d)) / np.sqrt(c),
+            rng.standard_normal((3, 3, 1, d)) / 3.0,
+            rng.standard_normal((1, 1, d, cout)) * 0.25 / np.sqrt(d))
+           for _ in range(units)]
+    wds, wus = zip(*(bn.pack_bottleneck_weights(*r) for r in raw))
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dt)
+    return (t(np.stack(wds), torch.bfloat16),
+            t(rng.uniform(-0.1, 0.1, (units, d))),
+            t(rng.uniform(0.05, 0.3, (units, d))),
+            t(np.stack(wus), torch.bfloat16),
+            t(rng.uniform(-0.1, 0.1, (units, cout))),
+            t(rng.uniform(0.05, 0.3, (units, cout))))
+
+
+def _bn_library(ops, last_act):
+    """The unit as PyTorch library calls: 1x1 conv, PReLU, 3x3 conv of the
+    composed weight, add, activation — per unit."""
+    fn = torch.nn.functional
+    wd, bd, ad, wu, bu, au = ops
+    units, d, c = wd.shape
+    cout = wu.shape[1]
+    w1 = wd.reshape(units, d, c, 1, 1)
+    w3 = wu.reshape(units, cout, 3, 3, d).permute(0, 1, 4, 2, 3).contiguous()
+    bd, ad, bu, au = (v.to(torch.bfloat16) for v in (bd, ad, bu, au))
+
+    def run(x, r=None):
+        y = x
+        for u in range(units):
+            z = fn.prelu(fn.conv2d(y, w1[u], bd[u]), ad[u])
+            z = fn.conv2d(z, w3[u], bu[u], padding=1) + (y if r is None
+                                                         else r)
+            y = (fn.prelu(z, au[u]) if last_act == "prelu" else
+                 torch.relu(z) if last_act == "relu" else z)
+        return y
+    return run
+
+
+def check_bottleneck(gen, dev, s: int = 64):
+    """K5 and K6 at all seven face-mesh stage shapes with B = 64 (K6 with
+    four units; K5 also with C' != C and with relu / no last activation),
+    bf16."""
+    from bp_from_video_tpu_torch.kernels import bottleneck as bn
+    rng = np.random.default_rng(5)
+    rows = {}
+    for kern, units in (("bottleneck_chain", 4), ("bottleneck_s1", 1)):
+        cases = [(hw, c, d, c, "prelu") for hw, c, d in MESH_STAGES]
+        if units == 1:
+            cases += [(128, 16, 8, 32, "prelu"), (64, 32, 16, 32, "relu"),
+                      (32, 64, 32, 64, "none")]
+        errs, main = [], None
+        for hw, c, d, cout, act in cases:
+            ops = _bn_operands(rng, units, c, d, cout, dev)
+            x = torch.randn((s, c, hw, hw), generator=gen, device=dev).to(
+                torch.bfloat16)
+            r = x if cout == c else torch.randn(
+                (s, cout, hw, hw), generator=gen, device=dev).to(
+                    torch.bfloat16)
+            if units == 1:
+                one = [o[0] for o in ops]
+                if act != "prelu":
+                    one[5] = None
+
+                def k(x=x, r=r, one=one, act=act):
+                    return bn.bottleneck_s1(x, r, *one, last_act=act)
+
+                def pl(x=x, r=r, one=one, act=act):
+                    return bn.bottleneck_s1_plain(x, r, *one, last_act=act)
+                lib_run = _bn_library(ops, act)
+
+                def lib(x=x, r=r, lib_run=lib_run):
+                    return lib_run(x, r)
+            else:
+                def k(x=x, ops=ops):
+                    return bn.bottleneck_chain(x, *ops, last_act="prelu")
+
+                def pl(x=x, ops=ops):
+                    return bn.bottleneck_chain_plain(x, *ops,
+                                                     last_act="prelu")
+                lib_run = _bn_library(ops, "prelu")
+
+                def lib(x=x, lib_run=lib_run):
+                    return lib_run(x)
+            got, want = k(), pl()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            # f32 sums in another order, rounded to bf16: one bf16 ulp of
+            # the output's largest value; in a chain a rounding that lands
+            # on the neighbouring value is carried on, one ulp per unit.
+            tol = units * BF16_ULP * float(want.float().abs().max()) + 1e-6
+            ms = time_ms(k)
+            pms = time_ms(pl, reps=3, inner=2, warm=1)
+            lms = time_ms(lib)
+            nbytes = ((x.numel() + got.numel()) * 2
+                      + (0 if r is x else r.numel() * 2)
+                      + sum(o.numel() * o.element_size() for o in ops))
+            flops = 2.0 * units * s * hw * hw * (d * c + cout * 9 * d)
+            bnd, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+            log(f"{'K6' if units > 1 else 'K5'} {kern} x{tuple(x.shape)} "
+                f"D {d} C' {cout} U {units} {act}: max_abs_err {err:.3g} "
+                f"(tol {tol:.3g}); kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                f"conv2d units {lms:.4f} ms, bound {bnd:.4f} ms ({by})")
+            if not err <= tol:
+                fail(f"{kern} at {tuple(x.shape)} disagrees with its plain "
+                     "version")
+            errs.append(err)
+            if main is None:        # the 128x128 stage: the main path's
+                main = dict(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bnd,
+                            bound_by=by)
+        line = {"bottleneck_chain": 461, "bottleneck_s1": 350}[kern]
+        rows[kern] = dict(
+            name=kern, route="cuda",
+            source="bp_from_video_tpu_torch/csrc/bottleneck.cu",
+            replaces=f"bp_from_video_tpu/pallas/block_kernel.py:{line}",
+            max_abs_err=max(errs), **main)
+    return rows["bottleneck_s1"], rows["bottleneck_chain"]
+
+
 # -- phases 3 and 4: the engine ------------------------------------------------
 
 
 def counters():
-    from bp_from_video_tpu_torch.kernels import block, roi, warp
-    return {"multi_crop": warp.multi_crop, "dense_s2_block":
-            block.dense_s2_block, "roi_sums": roi.roi_sums}
+    from bp_from_video_tpu_torch.kernels import (block, bottleneck, roi, stem,
+                                                 warp)
+    return {"multi_crop": warp.multi_crop, "stem_packed": stem.stem_packed,
+            "dense_s2_block": block.dense_s2_block,
+            "roi_sums": roi.roi_sums,
+            "bottleneck_s1": bottleneck.bottleneck_s1,
+            "bottleneck_chain": bottleneck.bottleneck_chain}
+
+
+def zero_counters():
+    for fn in counters().values():
+        fn.launches = 0
 
 
 def run_clip(engine, params, state, clip, t0: int = 0):
@@ -400,24 +632,47 @@ def run_clip(engine, params, state, clip, t0: int = 0):
     return state, out
 
 
-def flagship(steps: int, dev, profile_dir: str | None, card: str,
-             streams: int = 64):
+# Launches per step of each flagship path: K1 crops and K4 samples once;
+# K3 runs the hand net's stem and four blocks, plus the face net's stem
+# and, for the stand-in face net, its four blocks.
+PER_STEP = {
+    "standin": {"multi_crop": 1, "dense_s2_block": 10, "roi_sums": 1},
+    "mesh": {"multi_crop": 1, "dense_s2_block": 6, "roi_sums": 1,
+             "bottleneck_chain": 1},
+    "mesh, fused_trunk off": {"multi_crop": 1, "stem_packed": 2,
+                              "roi_sums": 1},
+    "mesh, every stage fused": {"multi_crop": 1, "dense_s2_block": 6,
+                                "roi_sums": 1, "bottleneck_chain": 7},
+}
+
+
+def flagship(path: str, clip, dev, card: str, profile_dir: str | None = None,
+             check_signal: bool = True, **infer):
+    """Drive ``flagship_config()`` (with ``infer`` overrides; the face
+    landmark net the compiled mesh graph unless ``path`` is "standin") over
+    ``clip`` with the launch counters set to 0 just before and read just
+    after; returns the counts."""
+    import dataclasses
+
     from bp_from_video_tpu_torch.config import flagship_config
+    from bp_from_video_tpu_torch.models.mesh_graph import face_mesh_graph
     from bp_from_video_tpu_torch.runtime.engine import Engine
-    cfg = flagship_config(streams)
-    s, h, w = cfg.num_streams, cfg.frame_height, cfg.frame_width
-    engine = Engine(cfg)
-    params = template_heads(engine.params)
+    steps, s = clip.shape[0], clip.shape[1]
+    cfg = flagship_config(s)
+    cfg = dataclasses.replace(cfg, inference=dataclasses.replace(
+        cfg.inference, **infer))
+    h, w = cfg.frame_height, cfg.frame_width
+    if path == "standin":
+        engine = Engine(cfg)
+        params = template_heads(engine.params)
+    else:
+        engine = Engine(cfg, graphs={"flm_lm": template_mesh(
+            face_mesh_graph(7))})
+        params = template_heads(engine.params, keys=("hand_lm",))
     tracked = torch.arange(s, device=dev) < s // 2
     state = tracked_state(engine, h, w, tracked)
-    t = time.perf_counter()
-    clip = pulse_clip(steps, s, h, w, split=300, seed=3, device=dev)
-    torch.cuda.synchronize()
-    log(f"flagship clip {tuple(clip.shape)} made on the card in "
-        f"{time.perf_counter() - t:.2f} s")
-    warm = 10
-    for fn in counters().values():
-        fn.launches = 0
+    warm = min(10, steps // 2)
+    zero_counters()
     torch.cuda.synchronize()
     t = time.perf_counter()
     state, _ = run_clip(engine, params, state, clip[:warm])
@@ -427,42 +682,90 @@ def flagship(steps: int, dev, profile_dir: str | None, card: str,
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = {k: fn.launches for k, fn in counters().items()}
-    want = {"multi_crop": steps, "dense_s2_block": 10 * steps,
-            "roi_sums": steps}
-    log(f"flagship launches over {steps} steps: {launches} (expected "
-        f"{want})")
+    want = {k: PER_STEP[path].get(k, 0) * steps for k in launches}
+    log(f"flagship [{path}] launches over {steps} steps: {launches} "
+        f"(expected {want})")
     if launches != want:
-        fail("a kernel of the main path was not launched once per step as "
-             "expected")
+        fail(f"flagship [{path}]: a kernel of the path was not launched as "
+             "often per step as expected")
     sps = (steps - warm) / (t_end - t_mid)
-    log(f"flagship S={s} {h}x{w} bf16 on {card}: first {warm} steps "
+    log(f"flagship [{path}] S={s} {h}x{w} bf16 on {card}: first {warm} steps "
         f"{t_mid - t:.3f} s; steady {sps:.3f} steps/s = {sps * s:.1f} "
         f"frames/s ({1e3 / sps:.3f} ms/step, host clock, synchronized)")
-    bpm, ptt = out.bpm.float().cpu(), out.ptt.float().cpu()
-    n_fin = int(torch.isfinite(bpm).all(-1).sum())
-    tr = tracked.cpu()
-    if not (bool(torch.isfinite(bpm[tr]).all())
-            and bool(torch.isfinite(ptt[tr]).all())):
-        fail("flagship: BPM/PTT not finite on the tracked streams")
-    # The clip pulses at 72 BPM, the palm 3 frames (100 ms) after the face.
-    if not bool(((bpm[tr] - 72).abs() <= 6).all()):
-        fail(f"flagship: BPM {bpm[tr].tolist()} not near 72")
-    if not bool(((ptt[tr] + 100).abs() <= 1000.0 / 30.0).all()):
-        fail(f"flagship: PTT {ptt[tr].tolist()} not near -100 ms")
-    if tuple(out.proc_y.shape) != (s, 2, cfg.signal.signal_max_samples):
-        fail(f"flagship: proc_y shape {tuple(out.proc_y.shape)}")
-    log(f"flagship outputs on tracked streams: BPM "
-        f"{sorted(set(bpm[tr].flatten().tolist()))}, PTT ms "
-        f"{sorted(set(ptt[tr].flatten().tolist()))}; streams with finite "
-        f"BPM {n_fin}/{s}; tracking face "
-        f"{int(state.track.face_tracking.sum())}/{s}")
+    n_track = int(state.track.face_tracking.sum())
+    if n_track < int(tracked.sum()):
+        fail(f"flagship [{path}]: only {n_track} faces still tracked")
+    if check_signal:
+        bpm, ptt = out.bpm.float().cpu(), out.ptt.float().cpu()
+        n_fin = int(torch.isfinite(bpm).all(-1).sum())
+        tr = tracked.cpu()
+        if not (bool(torch.isfinite(bpm[tr]).all())
+                and bool(torch.isfinite(ptt[tr]).all())):
+            fail(f"flagship [{path}]: BPM/PTT not finite on the tracked "
+                 "streams")
+        # The clip pulses at 72 BPM, the palm 3 frames (100 ms) after the
+        # face.
+        if not bool(((bpm[tr] - 72).abs() <= 6).all()):
+            fail(f"flagship [{path}]: BPM {bpm[tr].tolist()} not near 72")
+        if not bool(((ptt[tr] + 100).abs() <= 1000.0 / 30.0).all()):
+            fail(f"flagship [{path}]: PTT {ptt[tr].tolist()} not near "
+                 "-100 ms")
+        if tuple(out.proc_y.shape) != (s, 2, cfg.signal.signal_max_samples):
+            fail(f"flagship [{path}]: proc_y shape {tuple(out.proc_y.shape)}")
+        log(f"flagship [{path}] outputs on tracked streams: BPM "
+            f"{sorted(set(bpm[tr].flatten().tolist()))}, PTT ms "
+            f"{sorted(set(ptt[tr].flatten().tolist()))}; streams with "
+            f"finite BPM {n_fin}/{s}; tracking face {n_track}/{s}")
     if profile_dir:
-        profile(engine, params, state, clip[:9], steps, profile_dir)
-    del clip
+        profile(engine, params, state, clip[:9], steps, profile_dir, path)
     return launches
 
 
-def profile(engine, params, state, clip, t0, out_dir):
+def lone_unit_graph(dev, s: int = 64):
+    """Phase 3d, K5's path: a mesh graph whose first stage has ONE unit
+    (which cannot chain) compiles to a lone fused unit.  Its fused compile
+    runs on ``s`` stem activations at full width and is held against the
+    same graph compiled unfused.  Returns K5's launches in that run."""
+    from bp_from_video_tpu_torch.models import tflite_compiler as tc
+    from bp_from_video_tpu_torch.models.mesh_graph import face_mesh_graph
+    graph = face_mesh_graph(9, units_per_stage=(1, 4, 4, 4, 4, 4, 4))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.rand((s, 16, 128, 128), generator=gen, device=dev) * 2 - 0.5
+    launches = 0
+    # f32: fused and unfused differ by the order of f32 sums (the composed
+    # 3x3 against depthwise then 1x1), 1e-3 of each output's scale over 25
+    # units.  bf16: the unfused graph rounds after each of a unit's five
+    # ops, the fused one twice: 1e-1 of the scale (the tongueOut output, a
+    # sigmoid far in its tail, reads 3e-2 of its own small scale).
+    for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 1e-1)):
+        kw = dict(dtype=dtype, layout="NCHW", planar_inputs=True,
+                  external_stem=True, batch_flexible=True, device=dev)
+        fused, pf = tc.compile_graph(graph, fuse_bn=True, fuse_bn_min_hw=0,
+                                     **kw)
+        plain, pp = tc.compile_graph(graph, **kw)
+        ops = [op.opcode for op in fused.graph.ops]
+        if (ops.count("PALLAS_BN"), ops.count("PALLAS_BN_CHAIN")) != (1, 6):
+            fail(f"lone-unit graph compiled to {ops}")
+        zero_counters()
+        got = fused(pf, x)
+        torch.cuda.synchronize()
+        n = {k: fn.launches for k, fn in counters().items()}
+        want = plain(pp, x)
+        torch.cuda.synchronize()
+        if n["bottleneck_s1"] != 1 or n["bottleneck_chain"] != 6:
+            fail(f"lone-unit graph launched {n}")
+        launches += n["bottleneck_s1"]
+        for i, (g, w) in enumerate(zip(got, want)):
+            err = float((g.float() - w.float()).abs().max())
+            scale = float(w.float().abs().max())
+            log(f"lone-unit graph {dtype} output {i} {tuple(g.shape)}: fused "
+                f"vs unfused max_abs_err {err:.3g} (tol {tol * scale:.3g})")
+            if not (bool(torch.isfinite(g).all()) and err <= tol * scale):
+                fail("lone-unit graph: fused and unfused compiles disagree")
+    return launches
+
+
+def profile(engine, params, state, clip, t0, out_dir, path):
     """Trace ``clip`` through the engine: device time by kernel (and copy),
     the device's busy share of the wall time, and the host sync points of
     one more step (CUDA sync debug mode)."""
@@ -480,13 +783,14 @@ def profile(engine, params, state, clip, t0, out_dir):
         state, _ = run_clip(engine, params, state, clip[:n], t0=t0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    p.export_chrome_trace(os.path.join(out_dir, "flagship_trace.json"))
+    p.export_chrome_trace(os.path.join(out_dir,
+                                       f"flagship_{path}_trace.json"))
     evs = [e for e in p.key_averages() if e.device_type == DeviceType.CUDA]
     evs.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in evs) / 1e6
     launches = sum(e.count for e in evs) / n
-    log(f"profile: {n} steps, wall {wall * 1e3:.3f} ms (profiled), device "
-        f"time {busy * 1e3:.3f} ms, busy share {busy / wall:.4f}, "
+    log(f"profile [{path}]: {n} steps, wall {wall * 1e3:.3f} ms (profiled), "
+        f"device time {busy * 1e3:.3f} ms, busy share {busy / wall:.4f}, "
         f"{launches:.1f} kernels and copies per step")
     for e in evs[:20]:
         log(f"  {e.self_device_time_total / 1e3 / n:9.4f} ms/step "
@@ -501,47 +805,57 @@ def profile(engine, params, state, clip, t0, out_dir):
     sites = collections.Counter(
         f"{os.path.relpath(w.filename, here)}:{w.lineno}" for w in caught
         if "synchroniz" in str(w.message))
-    log(f"host syncs in one step: {sum(sites.values())} {dict(sites)}")
+    log(f"host syncs in one step [{path}]: {sum(sites.values())} "
+        f"{dict(sites)}")
 
 
 def card_vs_cpu(steps: int, dev):
+    """A small f32 config on the card (kernels) and on the CPU (plain
+    versions) over one clip: with stand-in nets, and with the face net a
+    compiled mesh graph of reduced size, every stage fused."""
     from bp_from_video_tpu_torch.config import (EngineConfig,
                                                 InferenceConfig)
+    from bp_from_video_tpu_torch.models.mesh_graph import face_mesh_graph
     from bp_from_video_tpu_torch.runtime.engine import Engine
     s, h, w = 2, 96, 128
-    cfg = EngineConfig(frame_height=h, frame_width=w, num_streams=s,
-                       compute_dtype="float32",
-                       inference=InferenceConfig(use_pallas=True,
-                                                 fused_stem=True,
-                                                 fused_trunk=True))
-    outs = {}
     clip = pulse_clip(steps, s, h, w, split=60, seed=4, device=dev)
-    for where in ("cuda", "cpu"):
-        eng = Engine(cfg, device=where)
-        params = template_heads(eng.params)
-        st = tracked_state(eng, h, w, torch.ones(s, dtype=torch.bool,
-                                                 device=eng.device))
-        t = time.perf_counter()
-        _, outs[where] = run_clip(eng, params, st, clip.to(where))
-        log(f"small f32 S={s} {h}x{w} on {where}: {steps} steps in "
-            f"{time.perf_counter() - t:.2f} s")
-    a, b = outs["cuda"], outs["cpu"]
-    bpm_a, bpm_b = a.bpm.cpu(), b.bpm
-    ptt_a, ptt_b = a.ptt.cpu(), b.ptt
-    log(f"card vs CPU: BPM {bpm_a.tolist()} / {bpm_b.tolist()}; PTT ms "
-        f"{ptt_a.tolist()} / {ptt_b.tolist()}")
-    if not (bool(torch.isfinite(bpm_a).all())
-            and torch.equal(bpm_a, bpm_b)):
-        fail("card and CPU BPM differ")
-    if not bool(((ptt_a - ptt_b).abs() <= 1000.0 / 30.0).all()):
-        fail("card and CPU PTT differ by more than one sample period")
+    for name, mesh in (("stand-ins", False), ("compiled face graph", True)):
+        cfg = EngineConfig(frame_height=h, frame_width=w, num_streams=s,
+                           compute_dtype="float32",
+                           inference=InferenceConfig(
+                               use_pallas=True, fused_stem=True,
+                               fused_trunk=True, fused_bn_min_hw=0))
+        outs = {}
+        for where in ("cuda", "cpu"):
+            graphs = ({"flm_lm": template_mesh(face_mesh_graph(
+                7, 64, ((16, 8), (32, 16), (64, 32))))} if mesh else None)
+            eng = Engine(cfg, device=where, graphs=graphs)
+            params = template_heads(eng.params, keys=(
+                ("hand_lm",) if mesh else ("flm_lm", "hand_lm")))
+            st = tracked_state(eng, h, w, torch.ones(s, dtype=torch.bool,
+                                                     device=eng.device))
+            t = time.perf_counter()
+            _, outs[where] = run_clip(eng, params, st, clip.to(where))
+            log(f"small f32 [{name}] S={s} {h}x{w} on {where}: {steps} "
+                f"steps in {time.perf_counter() - t:.2f} s")
+        a, b = outs["cuda"], outs["cpu"]
+        bpm_a, bpm_b = a.bpm.cpu(), b.bpm
+        ptt_a, ptt_b = a.ptt.cpu(), b.ptt
+        log(f"card vs CPU [{name}]: BPM {bpm_a.tolist()} / {bpm_b.tolist()}; "
+            f"PTT ms {ptt_a.tolist()} / {ptt_b.tolist()}")
+        if not (bool(torch.isfinite(bpm_a).all())
+                and torch.equal(bpm_a, bpm_b)):
+            fail(f"card and CPU BPM differ [{name}]")
+        if not bool(((ptt_a - ptt_b).abs() <= 1000.0 / 30.0).all()):
+            fail(f"card and CPU PTT differ by more than one sample period "
+                 f"[{name}]")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default=None,
-                    help="directory for a torch.profiler trace of the "
-                    "flagship step")
+                    help="directory for torch.profiler traces of the "
+                    "flagship step (stand-in and compiled-mesh paths)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA card (torch.cuda.is_available() is false)")
@@ -573,14 +887,35 @@ def main():
     from bp_from_video_tpu_torch.config import flagship_config
     from bp_from_video_tpu_torch.runtime.engine import Engine
     gen = torch.Generator(device=dev).manual_seed(0)
-    kernels = [check_multi_crop(gen, dev),
+    k5, k6 = check_bottleneck(gen, dev)
+    kernels = [check_multi_crop(gen, dev), check_stem_packed(gen, dev),
                check_dense_s2_block(Engine(flagship_config()), gen, dev),
-               check_roi_sums(gen, dev)]
+               check_roi_sums(gen, dev), k5, k6]
     log("phase 2: every kernel agrees with its plain version")
     torch.cuda.empty_cache()
 
-    launches = flagship(STEPS, dev, args.profile, card)
-    log("phase 3: flagship engine ran through every kernel")
+    cfg = flagship_config()
+    t = time.perf_counter()
+    clip = pulse_clip(STEPS, cfg.num_streams, cfg.frame_height,
+                      cfg.frame_width, split=300, seed=3, device=dev)
+    torch.cuda.synchronize()
+    log(f"flagship clip {tuple(clip.shape)} made on the card in "
+        f"{time.perf_counter() - t:.2f} s")
+    launches = flagship("standin", clip, dev, card, args.profile)
+    log("phase 3: flagship engine (stand-in nets) ran through K1, K3, K4")
+    mesh = flagship("mesh", clip, dev, card, args.profile)
+    launches["bottleneck_chain"] = mesh["bottleneck_chain"]
+    log("phase 3b: flagship engine with the compiled face mesh ran through "
+        "K6")
+    launches["stem_packed"] = flagship("mesh, fused_trunk off", clip, dev,
+                                       card, fused_trunk=False)["stem_packed"]
+    flagship("mesh, every stage fused", clip[:8], dev, card,
+             check_signal=False, fused_bn_min_hw=0)
+    log("phase 3c: both stems ran through K2; every mesh stage ran fused")
+    del clip
+    torch.cuda.empty_cache()
+    launches["bottleneck_s1"] = lone_unit_graph(dev)
+    log("phase 3d: the lone-unit graph ran through K5")
     torch.cuda.empty_cache()
 
     card_vs_cpu(STEPS, dev)

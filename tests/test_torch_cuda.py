@@ -1,5 +1,6 @@
-"""The port's CUDA kernels K1 (multi_crop), K3 (dense_s2_block) and K4
-(roi_sums) against their plain PyTorch versions on the card.
+"""The port's CUDA kernels K1 (multi_crop), K2 (stem_packed), K3
+(dense_s2_block), K4 (roi_sums), K5 (bottleneck_s1) and K6
+(bottleneck_chain) against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA card: it carries the ``cuda`` marker and
 skips elsewhere.  The file imports neither JAX nor the reference package
@@ -13,7 +14,9 @@ import pytest
 import torch
 
 from bp_from_video_tpu_torch.kernels import block as tbk
+from bp_from_video_tpu_torch.kernels import bottleneck as tbn
 from bp_from_video_tpu_torch.kernels import roi as trk
+from bp_from_video_tpu_torch.kernels import stem as tsk
 from bp_from_video_tpu_torch.kernels import warp as twk
 
 pytestmark = pytest.mark.cuda
@@ -122,20 +125,136 @@ def test_cuda_roi_sums_matches_plain(cuda_device, weighted):
         assert torch.equal(gs, ws) and torch.equal(gd, wd)
 
 
+def _bn_units(seed, units, c, d, cout, dtype, device):
+    """Stacked packed operands of ``units`` bottleneck units."""
+    rng = np.random.default_rng(seed)
+    wds, wus = zip(*(tbn.pack_bottleneck_weights(
+        rng.normal(0, 0.3, (1, 1, c, d)), rng.normal(0, 0.3, (3, 3, 1, d)),
+        rng.normal(0, 0.3, (1, 1, d, cout))) for _ in range(units)))
+    t = lambda a, dt=torch.float32: torch.from_numpy(       # noqa: E731
+        np.asarray(a, np.float32)).to(device).to(dt)
+    return (t(np.stack(wds), dtype), t(rng.normal(0, 0.1, (units, d))),
+            t(rng.uniform(0.1, 0.5, (units, d))), t(np.stack(wus), dtype),
+            t(rng.normal(0, 0.1, (units, cout))),
+            t(rng.uniform(0.1, 0.5, (units, cout))))
+
+
+def _ulp_tol(want, dt, n=1):
+    """n ulps of the output's largest value (f32: sums in another order)."""
+    return n * (1e-5 if dt == "float32" else 2.0 ** -8) * float(
+        want.float().abs().max())
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,d,cout,h,w,last_act", [
+    (16, 8, 16, 40, 40, "prelu"), (16, 8, 24, 19, 23, "prelu"),
+    (128, 64, 128, 16, 16, "relu"), (128, 64, 128, 2, 2, "none")])
+def test_cuda_bottleneck_s1_matches_plain(cuda_device, c, d, cout, h, w,
+                                          last_act, dt):
+    td = _DT[dt]
+    ops = [o[0] for o in _bn_units(5, 1, c, d, cout, td, cuda_device)]
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((3, c, h, w)).astype(
+        np.float32)).to(cuda_device).to(td)
+    r = x if cout == c else torch.from_numpy(rng.standard_normal(
+        (3, cout, h, w)).astype(np.float32)).to(cuda_device).to(td)
+    if last_act != "prelu":
+        ops[5] = None
+    got = tbn.bottleneck_s1(x, r, *ops, last_act=last_act)
+    want = tbn.bottleneck_s1_plain(x, r, *ops, last_act=last_act)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_ulp_tol(want, dt))
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,d,h,w,units", [(16, 8, 40, 40, 4),
+                                           (16, 8, 17, 21, 3),
+                                           (64, 32, 32, 32, 4),
+                                           (128, 64, 16, 16, 4),
+                                           (128, 64, 2, 2, 4)])
+def test_cuda_bottleneck_chain_matches_plain(cuda_device, c, d, h, w, units,
+                                             dt):
+    td = _DT[dt]
+    ops = _bn_units(7, units, c, d, c, td, cuda_device)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((3, c, h, w)).astype(
+        np.float32)).to(cuda_device).to(td)
+    got = tbn.bottleneck_chain(x, *ops, last_act="prelu")
+    want = tbn.bottleneck_chain_plain(x, *ops, last_act="prelu")
+    torch.cuda.synchronize()
+    # A rounding that lands on the neighbouring value in one unit is
+    # carried through the units after it: one ulp per unit.
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_ulp_tol(want, dt, units))
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cout,half,with_alpha", [(24, 56, False),
+                                                  (16, 64, True),
+                                                  (8, 7, True)])
+def test_cuda_stem_packed_matches_plain(cuda_device, cout, half, with_alpha,
+                                        dt):
+    td = _DT[dt]
+    rng = np.random.default_rng(9)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(  # noqa: E731
+        cuda_device)
+    crops = t(rng.uniform(0, 1, (3, 12, half, half))).to(td)
+    w = t(rng.normal(0, 0.2, (3, 3, 3, cout))).to(td)
+    b = t(rng.normal(0, 0.1, (cout,)))
+    alpha = t(rng.uniform(0.05, 0.5, (cout,))) if with_alpha else None
+    got = tsk.stem_packed(crops, w, b, alpha)
+    want = tsk.stem_packed_plain(crops, w, b, alpha)
+    torch.cuda.synchronize()
+    # Both take the 27 taps in one order with every multiply and add
+    # rounded on its own: equal bit for bit.
+    assert torch.equal(got, want)
+
+
+def test_cuda_division_by_a_tensor_matches_the_cpu(cuda_device):
+    """The port divides by a tensor (IEEE f32) where card and CPU must
+    agree: CUDA PyTorch turns a division by a Python scalar into a
+    multiplication by its reciprocal.  Held at the detector decode, whose
+    boxes and keypoints are one division and one addition per value."""
+    from bp_from_video_tpu_torch.models import anchors, detection
+    cfg = detection.PALM_DECODE
+    anc = torch.from_numpy(anchors.generate_anchors(anchors.PALM))
+    rng = np.random.default_rng(2)
+    reg = torch.from_numpy(rng.uniform(-200, 200, (2, anc.shape[0], 18)
+                                       ).astype(np.float32))
+    log = torch.zeros((2, anc.shape[0], 1))
+    cpu = detection.decode(cfg, reg, log, anc)
+    gpu = detection.decode(cfg, reg.to(cuda_device), log.to(cuda_device),
+                           anc.to(cuda_device))
+    assert torch.equal(gpu.boxes.cpu(), cpu.boxes)
+    assert torch.equal(gpu.kps.cpu(), cpu.kps)
+
+
 def test_cuda_wrappers_count_each_launch(cuda_device):
     frames, rects = _crop_inputs()
     fr, rois, _ = _roi_inputs()
     x, wmat, wspec, b, _ = _block_case(0, 3, 8, 4, cuda_device)
-    n = (twk.multi_crop.launches, tbk.dense_s2_block.launches,
-         trk.roi_sums.launches)
+    ops = _bn_units(1, 2, 16, 8, 16, torch.float32, cuda_device)
+    xb = torch.zeros((1, 16, 6, 6), device=cuda_device)
+    fns = (twk.multi_crop, tbk.dense_s2_block, trk.roi_sums, tsk.stem_packed,
+           tbn.bottleneck_s1, tbn.bottleneck_chain)
+    n = [f.launches for f in fns]
     twk.multi_crop(torch.from_numpy(frames).to(cuda_device),
                    torch.from_numpy(rects).to(cuda_device), (8, 8, 8))
     tbk.dense_s2_block(x, wmat, wspec, b, None, cin=3, resid=False)
     trk.roi_sums(torch.from_numpy(fr).to(cuda_device),
                  torch.from_numpy(rois).to(cuda_device))
+    tsk.stem_packed(x.float(), torch.zeros((3, 3, 3, 8), device=cuda_device),
+                    b)
+    tbn.bottleneck_s1(xb, xb, *(o[0] for o in ops))
+    tbn.bottleneck_chain(xb, *ops)
     torch.cuda.synchronize()
-    assert (twk.multi_crop.launches, tbk.dense_s2_block.launches,
-            trk.roi_sums.launches) == tuple(k + 1 for k in n)
+    assert [f.launches for f in fns] == [k + 1 for k in n]
+    # The plain versions launch no kernel and count nothing.
+    tbn.bottleneck_chain_plain(xb, *ops)
+    tsk.stem_packed_plain(x.float(), torch.zeros((3, 3, 3, 8),
+                                                 device=cuda_device), b)
+    assert [f.launches for f in fns] == [k + 1 for k in n]
 
 
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
@@ -146,3 +265,11 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):           # operands on two devices
         tbk.dense_s2_block(x, wmat.cpu(), wspec, b, None, cin=3,
                            resid=False)
+    ops = _bn_units(1, 2, 16, 8, 16, torch.float32, cuda_device)
+    xb = torch.zeros((1, 16, 6, 6), device=cuda_device)
+    with pytest.raises(ValueError):           # operands on two devices
+        tbn.bottleneck_chain(xb, ops[0].cpu(), *ops[1:])
+    with pytest.raises(ValueError):           # more taps than the kernel holds
+        tsk.stem_packed(torch.zeros((1, 16, 4, 4), device=cuda_device),
+                        torch.zeros((3, 3, 4, 8), device=cuda_device),
+                        torch.zeros(8, device=cuda_device))

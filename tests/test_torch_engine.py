@@ -264,8 +264,8 @@ def test_flagship_config_matches_bench():
 
 def test_unported_paths_raise():
     for kw in (dict(person_segmenter=True), dict(face_detector=True),
-               dict(rotation_mode="shear"),
-               dict(fused_trunk=False)):      # the fused stem alone (K2)
+               dict(rotation_mode="shear"), dict(pack_s2d=64),
+               dict(fuse_dw_pw=True)):
         cfg = EngineConfig(inference=InferenceConfig(**dict(FUSED, **kw)),
                            frame_height=H, frame_width=W)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -276,9 +276,13 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import bp_from_video_tpu_torch.runtime.engine\n"
             "import bp_from_video_tpu_torch.convert\n"
+            "import bp_from_video_tpu_torch.models.mesh_graph as mg\n"
+            "import bp_from_video_tpu_torch.models.tflite_compiler as tc\n"
             "import chip_smoke\n"
+            "tc.compile_graph(mg.face_mesh_graph(0, 32, ((8, 4),)), "
+            "device='cpu')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'bp_from_video_tpu')]\n"
+            "('jax', 'jaxlib', 'bp_from_video_tpu', 'tensorflow')]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
