@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -118,6 +119,85 @@ def _kdim(wspec: str, cin: int) -> int:
     raise ValueError(f"unknown wspec {wspec!r}")
 
 
+# -- K3 launch plan ---------------------------------------------------------
+# The rule of `make_plan` in csrc/dense_s2_block.cu, kept here so the CPU
+# tests can check it; the wrapper holds the two against each other once per
+# shape.
+
+PLAN_PIXELS = 256            # output pixels a block aims at (8 warps)
+TILE_BUDGET = 80 * 1024      # input tile bytes: room for 2+ blocks an SM
+TARGET_BLOCKS = 2 * 132      # two blocks for each SM of an H100
+SMEM_MAX = 232448            # shared bytes a block can have on Hopper
+KC = 64                      # weight K-chunk of one pipeline stage
+WPITCH = KC + 8              # bf16 per weight row in shared memory
+
+
+class BlockPlan(NamedTuple):
+    rows: int       # output rows a block covers (a band)
+    bands: int      # ceil(h / rows)
+    mf: int         # m16 fragments a warp: the M-tile is 16 * mf channels
+    m_tiles: int    # M-tiles over cout
+    nf: int         # n8 fragments a warp: 8 * nf pixels
+    warps: int      # warps a block; they split the band's pixels
+    c4p: int        # channels of a tile pixel: 4*cin (expanded: rup8)
+    pitch: int      # bf16 a tile pixel takes: an odd count of 16 bytes
+    smem: int       # dynamic shared bytes
+
+
+@functools.lru_cache(maxsize=None)
+def block_plan(bsz: int, h: int, w: int, cin: int, cout: int,
+               wspec: str) -> BlockPlan:
+    """Launch plan of K3 for input [bsz, 4*cin, h, w] and ``cout`` outputs:
+    one block = one crop x ``rows`` whole output rows x 16*mf channels; its
+    input tile [(rows+1) x (w+1) pixels][pitch] bf16 is loaded once."""
+    kdim = _kdim(wspec, cin)
+    if not (1 <= w <= PLAN_PIXELS and h >= 1 and cout >= 1):
+        raise ValueError(f"dense_s2_block: no launch plan for {h}x{w} "
+                         f"(rows of at most {PLAN_PIXELS} pixels)")
+    c4p = -(-4 * cin // 8) * 8 if wspec == "expanded" else 4 * cin
+    p16 = c4p // 8
+    pitch = 8 * (p16 + (1 if p16 % 2 == 0 else 2))
+
+    def tile(r):
+        return (r + 1) * (w + 1) * pitch * 2
+    rows = min(h, PLAN_PIXELS // w)
+    while rows > 1 and tile(rows) > TILE_BUDGET:
+        rows = -(-rows // 2)
+    bands = -(-h // rows)
+    c16 = -(-cout // 16)
+    mf = min(c16, 4)
+    while mf > 1 and bsz * bands * -(-c16 // mf) < TARGET_BLOCKS:
+        mf -= 1
+    m_tiles = -(-c16 // mf)
+    mf = -(-c16 // m_tiles)
+    nf = 4 if rows * w > 128 else 2
+    warps = -(-rows * w // (8 * nf))
+    smem = 2 * 16 * mf * WPITCH * 2 + tile(rows) + 4 * 2 * -(-kdim // 16)
+    if smem > SMEM_MAX:
+        raise ValueError(f"dense_s2_block: {smem} shared bytes for "
+                         f"{4 * cin}x{h}x{w} (at most {SMEM_MAX})")
+    return BlockPlan(rows, bands, mf, m_tiles, nf, warps, c4p, pitch, smem)
+
+
+def k_group_taps(wspec: str, cin: int) -> np.ndarray:
+    """[K/8, 3] int: for each group of 8 window rows of ``wspec``'s order,
+    (sy, sx, ch): the shift of the packed planes it reads and the first of
+    its 8 channels in a tile pixel — the kernel's per-block ``kofs`` table
+    before scaling by the tile's pitches."""
+    kdim = _kdim(wspec, cin)
+    out = np.zeros((kdim // 8, 3), np.int64)
+    for g in range(kdim // 8):
+        if wspec == "expanded":
+            per = -(-4 * cin // 8)              # groups per shifted copy
+            s = g // per
+            out[g] = (s >> 1, s & 1, (g - s * per) * 8)
+        else:
+            t, c0 = divmod(8 * g, cin)
+            dy, dx = divmod(t, 3)
+            out[g] = (dy >> 1, dx >> 1, ((dy & 1) * 2 + (dx & 1)) * cin + c0)
+    return out
+
+
 def dense_s2_block_plain(x_packed: Tensor, wmat: Tensor, wspec: str,
                          b: Tensor, alpha: Tensor | None, *, cin: int,
                          resid: bool) -> Tensor:
@@ -186,7 +266,10 @@ def dense_s2_block(x_packed: Tensor, wmat: Tensor, wspec: str, b: Tensor,
     if wmat.dtype != torch.bfloat16:
         raise ValueError(f"dense_s2_block: wmat must be bf16, got "
                          f"{wmat.dtype}")
+    _check_card_plan(bsz, h, w, cin, cout, wspec)
     x_packed = x_packed.contiguous()
+    if x_packed.data_ptr() % 16:        # the kernel loads 16-byte pieces
+        x_packed = x_packed.clone()
     wmat = wmat.contiguous()
     bias = b.to(torch.float32).contiguous()
     al = None if alpha is None else alpha.to(torch.float32).contiguous()
@@ -207,6 +290,24 @@ def dense_s2_block(x_packed: Tensor, wmat: Tensor, wspec: str, b: Tensor,
 
 
 dense_s2_block.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _check_card_plan(bsz: int, h: int, w: int, cin: int, cout: int,
+                     wspec: str) -> None:
+    """Raise unless the C entry plans this shape as ``block_plan`` does
+    (once per shape)."""
+    plan = block_plan(bsz, h, w, cin, cout, wspec)
+    lib = build.load("dense_s2_block")
+    fn = lib.dense_s2_block_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    got = (ctypes.c_int * len(plan))()
+    err = fn(bsz, h, w, cin, cout, _kdim(wspec, cin),
+             int(wspec == "expanded"), got)
+    if err or tuple(got) != tuple(plan):
+        raise RuntimeError(f"dense_s2_block: the kernel plans {tuple(got)} "
+                           f"(error {err}), block_plan {plan}")
 
 
 def trunk_apply(arrays: list, specs: tuple, stems: Tensor) -> Tensor:

@@ -7,9 +7,10 @@ Phases (each fatal on failure):
 1. build the hand-written CUDA kernels from ``bp_from_video_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together);
 2. hold each of the six kernels against its plain PyTorch version on the
-   card at the flagship shapes (64 streams of 480x640, bf16; K5/K6 at all
-   seven face-mesh stage shapes), and time the kernel, the plain version
-   and a PyTorch yardstick with CUDA events;
+   card at the flagship shapes (64 streams of 480x640, bf16; K3 at its 11
+   launch shapes, its SASS checked for tensor-core HMMA instructions; K5/K6
+   at all seven face-mesh stage shapes), and time the kernel, the plain
+   version and a PyTorch yardstick with CUDA events;
 3. run the flagship ``Engine.batch_step`` (``flagship_config()``) over a
    synthetic pulsing clip long enough to fill the 250-sample ring, with the
    kernels' launch counters set to 0 just before and read just after:
@@ -289,11 +290,76 @@ def _unpack_s2d(x):
         b, c, 2 * h, 2 * w)
 
 
+def _k3_launch(tag, x, wmat, spec, b, alpha, cin, resid):
+    """One K3 launch held against its plain version and timed beside
+    ``F.conv2d`` of the composed dense conv; returns its numbers and the
+    plain version's output."""
+    from bp_from_video_tpu_torch.kernels import block as bk
+    args = (x, wmat, spec, b, alpha)
+
+    def kern():
+        return bk.dense_s2_block(*args, cin=cin, resid=resid)
+
+    def plain():
+        return bk.dense_s2_block_plain(*args, cin=cin, resid=resid)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = BF16_ULP * float(want.float().abs().max()) + 1e-6
+    bsz, c4, h, w = x.shape
+    cout = wmat.shape[0]
+    wd = _dense_from_wmat(wmat, spec, cin).to(torch.bfloat16)
+    bd = b.to(torch.bfloat16)
+    xu = torch.nn.functional.pad(_unpack_s2d(x), (0, 1, 0, 1))
+
+    def library():
+        return torch.nn.functional.conv2d(xu, wd, bd, stride=2)
+    ms, pl, lib = time_ms(kern), time_ms(plain, reps=5), time_ms(library)
+    nbytes = (x.numel() + got.numel()) * x.element_size() + \
+        wmat.numel() * 2 + cout * 4 * (1 if alpha is None else 2)
+    flops = 2.0 * bsz * cout * 9 * cin * h * w
+    bnd, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+    plan = bk.block_plan(bsz, h, w, cin, cout, spec)
+    log(f"K3 {tag} x{tuple(x.shape)} ({spec}, cout {cout}): max_abs_err "
+        f"{err:.3g} (tol {tol:.3g}); kernel {ms:.4f} ms, plain {pl:.4f} ms, "
+        f"conv2d {lib:.4f} ms, bound {bnd:.4f} ms ({by}), share of bound "
+        f"{bnd / ms:.3f}; plan rows {plan.rows} x {plan.bands} bands, "
+        f"{plan.m_tiles} M-tiles of {16 * plan.mf}, {plan.warps} warps, "
+        f"{plan.smem} B shared")
+    if not err <= tol:
+        fail(f"dense_s2_block {tag} disagrees with its plain version")
+    return dict(err=err, ms=ms, plain=pl, lib=lib, bytes=nbytes,
+                flops=flops), want
+
+
+def sass_hmma(name: str) -> int:
+    """HMMA (tensor-core) instructions in a built kernel library's SASS,
+    read with ``cuobjdump -sass`` (the toolkit's, else Triton's copy)."""
+    from bp_from_video_tpu_torch.kernels import build
+    tool = [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")]
+    try:
+        import triton
+        tool.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                 "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    exe = next((t for t in tool if os.path.exists(t)), None)
+    if exe is None:
+        fail("cuobjdump not found")
+    sass = subprocess.run([exe, "-sass", build.lib_path(name)],
+                          capture_output=True, text=True, check=True).stdout
+    return sum("HMMA" in line for line in sass.splitlines())
+
+
 def check_dense_s2_block(engine, gen, dev, s: int = 64):
+    """K3 at its 11 flagship launch shapes: the stand-in face (B = 64) and
+    hand (B = 128) nets' stems and four blocks, and the compiled face
+    mesh's stem (cout 16, PReLU; seeded weights of its shape).  The per
+    step numbers are the stand-in path's 10 launches."""
     from bp_from_video_tpu_torch.kernels import block as bk
     runner, params = engine.runner, engine.params
-    rows, errs = [], []
     tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0, flops=0)
+    errs = []
     for key, bsz in (("flm_lm", s), ("hand_lm", 2 * s)):
         p, size = params[key], runner.sizes[key]
         x = torch.rand((bsz, 12, size // 2, size // 2), generator=gen,
@@ -306,51 +372,31 @@ def check_dense_s2_block(engine, gen, dev, s: int = 64):
         for name, wmat, spec, b, cin, resid in layers:
             if name != "stem":
                 x = bk.pack_s2d(x).contiguous()
-
-            def kern(x=x, wmat=wmat, spec=spec, b=b, cin=cin, resid=resid):
-                return bk.dense_s2_block(x, wmat, spec, b, None, cin=cin,
-                                         resid=resid)
-
-            def plain(x=x, wmat=wmat, spec=spec, b=b, cin=cin, resid=resid):
-                return bk.dense_s2_block_plain(x, wmat, spec, b, None,
-                                               cin=cin, resid=resid)
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            tol = BF16_ULP * float(want.float().abs().max()) + 1e-6
-            _, c4, h, w = x.shape
-            cout = wmat.shape[0]
-            wd = _dense_from_wmat(wmat, spec, cin).to(torch.bfloat16)
-            bd = b.to(torch.bfloat16)
-            xu = torch.nn.functional.pad(_unpack_s2d(x), (0, 1, 0, 1))
-
-            def library(xu=xu, wd=wd, bd=bd):
-                return torch.nn.functional.conv2d(xu, wd, bd, stride=2)
-            ms, pl, lib = time_ms(kern), time_ms(plain, reps=5), \
-                time_ms(library)
-            nbytes = (x.numel() + got.numel()) * x.element_size() + \
-                wmat.numel() * 2 + cout * 4
-            flops = 2.0 * bsz * cout * 9 * cin * h * w
-            bnd, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
-            log(f"K3 {key}.{name} x{tuple(x.shape)} ({spec}, cout {cout}): "
-                f"max_abs_err {err:.3g} (tol {tol:.3g}); kernel {ms:.4f} ms, "
-                f"plain {pl:.4f} ms, conv2d {lib:.4f} ms, bound {bnd:.4f} ms "
-                f"({by})")
-            if not err <= tol:
-                fail(f"dense_s2_block {key}.{name} disagrees with its plain "
-                     "version")
-            errs.append(err)
-            tot["ms"] += ms
-            tot["plain"] += pl
-            tot["lib"] += lib
-            tot["bytes"] += nbytes
-            tot["flops"] += flops
-            rows.append(name)
-            x = want
+            r, x = _k3_launch(f"{key}.{name}", x, wmat, spec, b, None, cin,
+                              resid)
+            errs.append(r["err"])
+            for k in tot:
+                tot[k] += r[k]
+    rng = np.random.default_rng(16)
+    wmat, spec = bk.pack_block_weights(
+        rng.standard_normal((3, 3, 3, 16)) * (2.0 / 27) ** 0.5, cin=3)
+    x = torch.rand((s, 12, 128, 128), generator=gen, device=dev).to(
+        torch.bfloat16)
+    mesh, _ = _k3_launch(
+        "mesh stem (PReLU)", x,
+        torch.from_numpy(wmat).to(dev).to(torch.bfloat16), spec,
+        torch.from_numpy(rng.uniform(-0.1, 0.1, 16)).float().to(dev),
+        torch.from_numpy(rng.uniform(0.05, 0.3, 16)).float().to(dev), 3,
+        False)
+    errs.append(mesh["err"])
     b, by = bound_ms(tot["bytes"], tot["flops"], BF16_TENSOR_FLOPS)
-    log(f"K3 per step ({len(rows)} launches): kernel {tot['ms']:.4f} ms, "
-        f"plain {tot['plain']:.4f} ms, conv2d {tot['lib']:.4f} ms, bound "
-        f"{b:.4f} ms ({by})")
+    log(f"K3 per step, stand-in path (10 launches): kernel {tot['ms']:.4f} "
+        f"ms, plain {tot['plain']:.4f} ms, conv2d {tot['lib']:.4f} ms, bound "
+        f"{b:.4f} ms ({by}), share of bound {b / tot['ms']:.3f}")
+    hmma = sass_hmma("dense_s2_block")
+    log(f"K3 SASS: {hmma} HMMA instructions (cuobjdump -sass)")
+    if hmma == 0:
+        fail("dense_s2_block: no tensor-core (HMMA) instruction in its SASS")
     return dict(name="dense_s2_block", route="cuda",
                 source="bp_from_video_tpu_torch/csrc/dense_s2_block.cu",
                 replaces="bp_from_video_tpu/pallas/block_kernel.py:180",

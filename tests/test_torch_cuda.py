@@ -43,17 +43,18 @@ def _crop_inputs(seed=0, s=3, h=120, w=160, c=3):
     return frames, rects
 
 
-def _block_case(seed, cin, cout, hw, device):
+def _block_case(seed, cin, cout, hw, device, bsz=2, w=None,
+                dtype=torch.bfloat16):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((2, 4 * cin, hw, hw)).astype(np.float32)
-    w = (rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin)
-         ).astype(np.float32)
+    x = rng.standard_normal((bsz, 4 * cin, hw, w or hw)).astype(np.float32)
+    wd = (rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin)
+          ).astype(np.float32)
     b = rng.standard_normal(cout).astype(np.float32)
     alpha = rng.uniform(0, 0.3, cout).astype(np.float32)
-    wmat, wspec = tbk.pack_block_weights(w, cin=cin)
+    wmat, wspec = tbk.pack_block_weights(wd, cin=cin)
     t = lambda a: torch.from_numpy(a).to(device)            # noqa: E731
-    return (t(x).to(torch.bfloat16), t(wmat).to(torch.bfloat16), wspec,
-            t(b), t(alpha))
+    return (t(x).to(dtype), t(wmat).to(torch.bfloat16), wspec, t(b),
+            t(alpha))
 
 
 def _roi_inputs(seed=3, s=2, h=24, w=32, r=8):
@@ -91,20 +92,54 @@ def test_cuda_multi_crop_matches_plain(cuda_device, dt):
     assert torch.equal(got[1][0], torch.zeros_like(got[1][0]))
 
 
-@pytest.mark.parametrize("cin,cout,resid,hw", [(3, 24, False, 16),
-                                               (24, 48, True, 8),
-                                               (96, 192, True, 7)])
-def test_cuda_dense_s2_block_matches_plain(cuda_device, cin, cout, resid,
-                                           hw):
-    x, wmat, wspec, b, alpha = _block_case(4, cin, cout, hw, cuda_device)
-    args = (x, wmat, wspec, b, None if resid else alpha)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bsz,h,w,cin,cout,resid,act", [
+    (2, 16, 16, 3, 24, False, "prelu"),    # stand-in stem, cout 24 ragged
+    (3, 16, 16, 3, 16, False, "prelu"),    # the mesh stem: cout 16, PReLU
+    (3, 16, 16, 3, 24, False, "relu"),     # alpha None: ReLU
+    (2, 8, 8, 24, 48, True, None),
+    (3, 14, 14, 96, 96, True, None),       # 4 bands of 4, 4, 4, 2 rows
+    (3, 14, 14, 24, 24, True, None),       # cout 24 against the M-tile
+    (2, 7, 7, 96, 192, True, None),        # 7x7: one crop, odd width
+    (3, 12, 12, 48, 96, True, None),       # 8-byte row loads
+    (3, 11, 9, 8, 16, True, None),         # odd h and w, one k-group/tap
+    (2, 6, 6, 5, 8, False, "prelu")])      # expanded with cin 5
+def test_cuda_dense_s2_block_matches_plain(cuda_device, bsz, h, w, cin, cout,
+                                           resid, act, dt):
+    x, wmat, wspec, b, alpha = _block_case(4, cin, cout, h, cuda_device,
+                                           bsz=bsz, w=w, dtype=_DT[dt])
+    args = (x, wmat, wspec, b, alpha if act == "prelu" else None)
     got = tbk.dense_s2_block(*args, cin=cin, resid=resid)
     want = tbk.dense_s2_block_plain(*args, cin=cin, resid=resid)
     torch.cuda.synchronize()
+    assert got.dtype == x.dtype
     # f32 sums of exact bf16 products in another order, rounded to bf16:
-    # at most one bf16 ulp apart.
+    # at most one bf16 ulp apart.  An f32 input's residual is the unrounded
+    # parity-plane max on both sides.
     torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
                                rtol=2.0 ** -7)
+
+
+def test_cuda_dense_s2_block_plans_as_block_plan(cuda_device):
+    """The C entry's launch plan equals ``block_plan`` at the 11 flagship
+    shapes (the wrapper checks it once per shape it launches)."""
+    import ctypes
+
+    from bp_from_video_tpu_torch.kernels import build
+    fn = build.load("dense_s2_block").dense_s2_block_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    for bsz, hw, cin, cout, spec in (
+            (64, 128, 3, 24, "expanded"), (64, 64, 24, 48, "sliced"),
+            (64, 32, 48, 96, "sliced"), (64, 16, 96, 96, "sliced"),
+            (64, 8, 96, 192, "sliced"), (128, 112, 3, 24, "expanded"),
+            (128, 56, 24, 48, "sliced"), (128, 28, 48, 96, "sliced"),
+            (128, 14, 96, 96, "sliced"), (128, 7, 96, 192, "sliced"),
+            (64, 128, 3, 16, "expanded")):
+        got = (ctypes.c_int * 9)()
+        assert fn(bsz, hw, hw, cin, cout, tbk._kdim(spec, cin),
+                  int(spec == "expanded"), got) == 0
+        assert tuple(got) == tuple(tbk.block_plan(bsz, hw, hw, cin, cout,
+                                                  spec))
 
 
 @pytest.mark.parametrize("weighted", [False, True])
