@@ -1,6 +1,6 @@
 """Kernels K5 and K6: the face-mesh bottleneck residual unit, alone
-(``bottleneck_s1``) or as a chain of same-shape units in one launch
-(``bottleneck_chain``), both in ``csrc/bottleneck.cu``.
+(``bottleneck_s1``) or as a chain of same-shape units (``bottleneck_chain``),
+both in ``csrc/bottleneck.cu``.
 
 Counterpart of ``bp_from_video_tpu/pallas/block_kernel.py``
 ``bottleneck_s1`` / ``bottleneck_chain`` and their host packing
@@ -17,12 +17,16 @@ Counterpart of ``bp_from_video_tpu/pallas/block_kernel.py``
 input and each unit rounds once.
 
 The wrappers launch the CUDA kernel for a CUDA tensor and take the plain
-versions for a CPU tensor.
+versions for a CPU tensor.  On the card, bf16 x and weights take the
+tensor-core route (one launch per unit, planned by ``bottleneck_plan``;
+a shape without a plan raises), any other dtype mix the f32 FMA route.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -120,6 +124,168 @@ def _check(name, x, wd, bd, ad, wu, bu, au, lead, cout, last_act):
                          f"{wu.dtype}: float32 or bfloat16 expected")
 
 
+# -- the bf16 route's launch plan ----------------------------------------------
+# The rule of `make_tc_plan` in csrc/bottleneck.cu, kept here so the CPU
+# tests can check it; the wrapper holds the two against each other once per
+# shape.
+
+TC_PIXELS = 256              # output pixels a block aims at
+TC_MIN_PIXELS = 64           # ... and the fewest it is cut down to
+TC_MAX_WARPS = 8             # warps a block: 8 where the channels allow
+TC_TARGET_BLOCKS = 2 * 132   # two blocks for each SM of an H100
+TC_SMEM_BUDGET = 113 * 1024  # shared bytes a block: two blocks an SM
+SMEM_MAX = 232448            # shared bytes a block can have on Hopper
+WKC = 64                     # Wu K-chunk of one ring stage
+WSTAGES = 3                  # ring stages: two chunks in flight
+WKP = WKC + 8                # bf16 per Wu row in shared memory
+
+
+class BottleneckPlan(NamedTuple):
+    g: int          # crops a block
+    rows: int       # output rows a block covers (a band)
+    groups: int     # ceil(B / g)
+    bands: int      # ceil(h / rows)
+    nsplit: int     # blocks over the output channels
+    cb: int         # output channels a block: 8 * wn * nf
+    wn: int         # warps over the channels
+    nf: int         # n8 tiles a warp
+    wm: int         # warps over the pixels, 32 each
+    pitch_x: int    # bf16 an x-tile pixel takes: an odd count of 16 bytes
+    pitch_z: int    # the same for a z-tile pixel
+    sp: int         # f32 a channel row of the staged sums takes
+    wst: int        # Wu chunks in shared memory: all of them, or a ring
+    smem: int       # dynamic shared bytes
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _odd_units(n8: int) -> int:
+    return 8 * (n8 + 1 if n8 % 2 == 0 else n8)
+
+
+@functools.lru_cache(maxsize=None)
+def bottleneck_plan(bsz: int, h: int, w: int, c: int, d: int,
+                    cout: int) -> BottleneckPlan:
+    """Launch plan of one bf16 unit for x [bsz, c, h, w], D = ``d`` and C'
+    = ``cout``: one block = ``g`` crops x ``rows`` output rows x ``cb``
+    channels; its x tile [g x (rows+2) x (w+2) pixels][pitch_x] bf16 is
+    loaded once and z computed on all of it; ``wst`` of Wu's 64-deep
+    K-chunks sit in shared memory at once."""
+    if (c < 8 or c % 8 or d < 8 or d % 8 or cout < 1 or h < 1 or w < 1
+            or w > TC_PIXELS or bsz < 1):
+        raise ValueError(f"bottleneck: no bf16 launch plan for C {c}, D {d}, "
+                         f"C' {cout}, {h}x{w} (C and D multiples of 8, rows "
+                         f"of at most {TC_PIXELS} pixels)")
+    cp = _cdiv(c, 16) * 16
+    pitch_x, pitch_z = _odd_units(cp // 8), _odd_units(d // 8)
+    nct = _cdiv(cout, 8)
+    if h * w >= TC_PIXELS:
+        g, rows = 1, min(h, TC_PIXELS // w)
+    else:
+        g, rows = min(bsz, TC_PIXELS // (h * w)), h
+    nsplit = 1
+
+    def shrink():
+        nonlocal g, rows
+        if g > 1:
+            g = _cdiv(g, 2)
+        elif rows > 1:
+            rows = _cdiv(rows, 2)
+        else:
+            return False
+        return True
+
+    def fill():
+        ntb = _cdiv(nct, nsplit)
+        pix = g * rows * w
+        wm = _cdiv(pix, 32)
+        # 8 warps a block where the channels allow: few pixels take more
+        # channel warps.
+        wn = max(_cdiv(ntb, 8), min(_cdiv(TC_MAX_WARPS, wm), ntb))
+        nf = _cdiv(ntb, wn)
+        cb = 8 * wn * nf
+        sp = _cdiv(pix, 16) * 16 + 4
+        npz16 = _cdiv(g * (rows + 2) * (w + 2), 16) * 16
+        tiles = npz16 * (pitch_x + pitch_z) * 2
+        ks2 = _cdiv(9 * d, 16)
+        nchunks = _cdiv(ks2, 4)
+        rest = (d * (cp + 8) * 2 + (2 * d + 2 * cb) * 4 + _cdiv(2 * ks2, 4) * 16
+                + 2 * _cdiv(pix, 4) * 16 + npz16 + max(tiles, cb * sp * 4))
+        # All of Wu's chunks where they fit, else a ring of WSTAGES.
+        chunk = cb * WKP * 2
+        wst = nchunks
+        if nchunks > WSTAGES and rest + nchunks * chunk > TC_SMEM_BUDGET:
+            wst = WSTAGES
+        return BottleneckPlan(g, rows, _cdiv(bsz, g), _cdiv(h, rows),
+                              _cdiv(cout, cb), cb, wn, nf, wm, pitch_x,
+                              pitch_z, sp, wst, rest + wst * chunk)
+    # Fit a block, then fill the card: split the channels first (each split
+    # recomputes z), then take fewer pixels a block.
+    while True:
+        q = fill()
+        if q.wm * q.wn > TC_MAX_WARPS or q.smem > TC_SMEM_BUDGET:
+            if q.cb > 32:
+                nsplit *= 2
+            elif not shrink():
+                raise ValueError(f"bottleneck: no bf16 launch plan fits "
+                                 f"shared memory for C {c}, D {d}, {h}x{w}")
+        elif q.nsplit * q.groups * q.bands < TC_TARGET_BLOCKS:
+            if q.cb > 32:
+                nsplit *= 2
+            elif not (g * rows * w > TC_MIN_PIXELS and shrink()):
+                break
+        else:
+            break
+    if q.smem > SMEM_MAX:
+        raise ValueError(f"bottleneck: {q.smem} shared bytes")
+    return q
+
+
+def tap_groups(d: int) -> np.ndarray:
+    """[9D/8, 3] int: for each group of 8 rows of ``wu``'s K (window) axis,
+    (dy, dx, d0): the tap it reads z at (shift (dy-1, dx-1)) and its first
+    mid channel — the kernel's per-block byte-offset table before scaling
+    by the z tile's pitches."""
+    out = np.zeros((9 * d // 8, 3), np.int64)
+    for g in range(9 * d // 8):
+        t, d0 = divmod(8 * g, d)
+        out[g] = (t // 3, t % 3, d0)
+    return out
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The built library with its entries' ctypes signatures, set once."""
+    lib = build.load("bottleneck")
+    lib.bottleneck_scratch_floats.argtypes = [_I] * 4
+    lib.bottleneck_scratch_floats.restype = _I
+    lib.bottleneck_plan.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
+    lib.bottleneck_plan.restype = _I
+    lib.bottleneck_s1_launch.argtypes = [_P] * 10 + [_I] * 9 + [_P]
+    lib.bottleneck_s1_launch.restype = _I
+    lib.bottleneck_chain_launch.argtypes = [_P] * 10 + [_I] * 9 + [_P]
+    lib.bottleneck_chain_launch.restype = _I
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _check_card_plan(bsz: int, h: int, w: int, c: int, d: int,
+                     cout: int) -> None:
+    """Raise unless the C entry plans this shape as ``bottleneck_plan``
+    does (once per shape)."""
+    plan = bottleneck_plan(bsz, h, w, c, d, cout)
+    got = (ctypes.c_int * len(plan))()
+    err = _lib().bottleneck_plan(bsz, h, w, c, d, cout, got)
+    if err or tuple(got) != tuple(plan):
+        raise RuntimeError(f"bottleneck: the kernel plans {tuple(got)} "
+                           f"(error {err}), bottleneck_plan {plan}")
+
+
 def _launch(entry: str, x, r, wd, bd, ad, wu, bu, au, units, cout,
             last_act) -> Tensor:
     dev = x.device
@@ -132,30 +298,38 @@ def _launch(entry: str, x, r, wd, bd, ad, wu, bu, au, units, cout,
     x, wd, wu = x.contiguous(), wd.contiguous(), wu.contiguous()
     bd, ad, bu = (t.to(f32).contiguous() for t in (bd, ad, bu))
     au = None if au is None else au.to(f32).contiguous()
-    lib = build.load("bottleneck")
-    lib.bottleneck_scratch_floats.argtypes = [ctypes.c_int] * 4
-    lib.bottleneck_scratch_floats.restype = ctypes.c_int
-    scratch = torch.empty(lib.bottleneck_scratch_floats(units, c, d, cout),
-                          dtype=f32, device=dev)
+    lib = _lib()
+    scratch = buf = None
+    if r is not None:
+        r = r.contiguous()
+    if x.dtype == torch.bfloat16 and wd.dtype == torch.bfloat16:
+        _check_card_plan(bsz, h, w, c, d, cout)
+        # The kernel reads every operand in 16-byte pieces (cp.async, tile
+        # rows) or pixel pairs: a view off that alignment is copied.
+        x, r, wd, bd, ad, wu, bu, au = (
+            t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+            for t in (x, r, wd, bd, ad, wu, bu, au))
+        if units > 1:                   # ping-pong between units
+            buf = torch.empty((bsz, cout, h, w), dtype=x.dtype, device=dev)
+    else:
+        scratch = torch.empty(lib.bottleneck_scratch_floats(units, c, d,
+                                                            cout),
+                              dtype=f32, device=dev)
     out = torch.empty((bsz, cout, h, w), dtype=x.dtype, device=dev)
     tail = (_ACTS[last_act], int(x.dtype == torch.bfloat16),
             int(wd.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     ptr = [wd.data_ptr(), bd.data_ptr(), ad.data_ptr(), wu.data_ptr(),
            bu.data_ptr(), None if au is None else au.data_ptr(),
-           scratch.data_ptr(), out.data_ptr()]
-    fn = getattr(lib, entry)
-    fn.restype = ctypes.c_int
+           None if scratch is None else scratch.data_ptr()]
     if r is not None:
-        r = r.contiguous()
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
-            ctypes.c_void_p]
-        err = fn(x.data_ptr(), r.data_ptr(), *ptr, bsz, c, d, cout, h, w,
-                 *tail)
+        err = lib.bottleneck_s1_launch(x.data_ptr(), r.data_ptr(), *ptr,
+                                       out.data_ptr(), bsz, c, d, cout, h, w,
+                                       *tail)
     else:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
-            ctypes.c_void_p]
-        err = fn(x.data_ptr(), *ptr, bsz, units, c, d, h, w, *tail)
+        err = lib.bottleneck_chain_launch(
+            x.data_ptr(), *ptr, None if buf is None else buf.data_ptr(),
+            out.data_ptr(), bsz, units, c, d, h, w, *tail)
     build.check(lib, err, entry)
     return out
 
@@ -191,7 +365,8 @@ bottleneck_s1.launches = 0
 def bottleneck_chain(x: Tensor, wd: Tensor, bd: Tensor, ad: Tensor,
                      wu: Tensor, bu: Tensor, au: Tensor, *,
                      last_act: str = "prelu") -> Tensor:
-    """U chained same-shape units in one launch.  x: [B, C, h, w]; wd:
+    """U chained same-shape units: on the card one call makes U kernel
+    launches (bf16; one for f32).  x: [B, C, h, w]; wd:
     [U, D, C]; wu: [U, C, 9D]; bd/ad: [U, D]; bu/au: [U, C].  Each unit's
     residual is its own input.  Returns [B, C, h, w] in x's dtype."""
     if wd.ndim != 3:

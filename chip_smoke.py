@@ -8,8 +8,8 @@ Phases (each fatal on failure):
    (one ``nvcc`` per source, all started together);
 2. hold each of the six kernels against its plain PyTorch version on the
    card at the flagship shapes (64 streams of 480x640, bf16; K3 at its 11
-   launch shapes, its SASS checked for tensor-core HMMA instructions; K5/K6
-   at all seven face-mesh stage shapes), and time the kernel, the plain
+   launch shapes; K5/K6 at all seven face-mesh stage shapes; both SASS
+   checked for tensor-core HMMA instructions), and time the kernel, the plain
    version and a PyTorch yardstick with CUDA events;
 3. run the flagship ``Engine.batch_step`` (``flagship_config()``) over a
    synthetic pulsing clip long enough to fill the 250-sample ring, with the
@@ -572,8 +572,9 @@ def _bn_library(ops, last_act):
 
 def check_bottleneck(gen, dev, s: int = 64):
     """K5 and K6 at all seven face-mesh stage shapes with B = 64 (K6 with
-    four units; K5 also with C' != C and with relu / no last activation),
-    bf16."""
+    four units, one kernel launch each; K5 also with C' != C and with relu
+    / no last activation), bf16: the tensor-core route, its SASS checked
+    for HMMA instructions."""
     from bp_from_video_tpu_torch.kernels import bottleneck as bn
     rng = np.random.default_rng(5)
     rows = {}
@@ -630,10 +631,14 @@ def check_bottleneck(gen, dev, s: int = 64):
                       + sum(o.numel() * o.element_size() for o in ops))
             flops = 2.0 * units * s * hw * hw * (d * c + cout * 9 * d)
             bnd, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+            p = bn.bottleneck_plan(s, hw, hw, c, d, cout)
             log(f"{'K6' if units > 1 else 'K5'} {kern} x{tuple(x.shape)} "
                 f"D {d} C' {cout} U {units} {act}: max_abs_err {err:.3g} "
                 f"(tol {tol:.3g}); kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                f"conv2d units {lms:.4f} ms, bound {bnd:.4f} ms ({by})")
+                f"conv2d units {lms:.4f} ms, bound {bnd:.4f} ms ({by}); "
+                f"plan G {p.g} x R {p.rows} x {p.cb} ch, "
+                f"{p.groups * p.bands * p.nsplit} blocks of "
+                f"{p.wm * p.wn} warps, {p.smem} B shared")
             if not err <= tol:
                 fail(f"{kern} at {tuple(x.shape)} disagrees with its plain "
                      "version")
@@ -642,6 +647,12 @@ def check_bottleneck(gen, dev, s: int = 64):
                 main = dict(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bnd,
                             bound_by=by)
         line = {"bottleneck_chain": 461, "bottleneck_s1": 350}[kern]
+        if kern == "bottleneck_chain":
+            hmma = sass_hmma("bottleneck")
+            log(f"K5/K6 SASS: {hmma} HMMA instructions (cuobjdump -sass)")
+            if hmma == 0:
+                fail("bottleneck: no tensor-core (HMMA) instruction in its "
+                     "SASS")
         rows[kern] = dict(
             name=kern, route="cuda",
             source="bp_from_video_tpu_torch/csrc/bottleneck.cu",

@@ -224,6 +224,89 @@ def test_cuda_bottleneck_chain_matches_plain(cuda_device, c, d, h, w, units,
                                atol=_ulp_tol(want, dt, units))
 
 
+@pytest.mark.parametrize("bsz,c,d,cout,h,w,units,last_act,self_res", [
+    (5, 128, 64, 128, 2, 2, 1, "prelu", True),    # G > 1, B % G != 0
+    (7, 128, 64, 128, 4, 4, 3, "prelu", True),    # G > 1, channels split
+    (65, 128, 64, 128, 2, 2, 2, "none", True),    # 9 groups, last of 1
+    (2, 16, 8, 16, 128, 128, 2, "prelu", True),   # a 128^2 crop, 128 bands
+    (3, 16, 8, 24, 19, 23, 1, "prelu", False),    # C' = 24, ragged band
+    (2, 16, 8, 32, 12, 12, 1, "relu", False),     # C' != C, r not x
+    (3, 24, 16, 24, 17, 21, 1, "prelu", True),    # C % 16 = 8, odd w
+    (4, 32, 16, 32, 64, 64, 4, "prelu", True)])
+def test_cuda_bottleneck_bf16_plans_match_plain(cuda_device, bsz, c, d, cout,
+                                                h, w, units, last_act,
+                                                self_res):
+    """The bf16 (tensor-core) route at shapes that stress its launch plan,
+    K5 for one unit and K6 for more."""
+    ops = _bn_units(11, units, c, d, cout, torch.bfloat16, cuda_device)
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((bsz, c, h, w)).astype(
+        np.float32)).to(cuda_device).to(torch.bfloat16)
+    if units == 1:
+        one = [o[0] for o in ops]
+        if last_act != "prelu":
+            one[5] = None
+        r = x if self_res else torch.from_numpy(rng.standard_normal(
+            (bsz, cout, h, w)).astype(np.float32)).to(cuda_device).to(
+                torch.bfloat16)
+        got = tbn.bottleneck_s1(x, r, *one, last_act=last_act)
+        want = tbn.bottleneck_s1_plain(x, r, *one, last_act=last_act)
+    else:
+        got = tbn.bottleneck_chain(x, *ops, last_act=last_act)
+        want = tbn.bottleneck_chain_plain(x, *ops, last_act=last_act)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_ulp_tol(want, "bfloat16", units))
+
+
+def test_cuda_bottleneck_bf16_takes_unaligned_views(cuda_device):
+    """Operands that are views off 16-byte alignment (a residual at an odd
+    element offset, unit 1's biases of a stack with C' = 10) give what the
+    plain version gives."""
+    ops = _bn_units(13, 2, 16, 8, 10, torch.bfloat16, cuda_device)
+    one = [o[1] for o in ops]
+    assert one[4].data_ptr() % 16 != 0
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 6, 6)).astype(
+        np.float32)).to(cuda_device).to(torch.bfloat16)
+    flat = torch.from_numpy(rng.standard_normal(1 + 2 * 10 * 36).astype(
+        np.float32)).to(cuda_device).to(torch.bfloat16)
+    r = flat[1:].view(2, 10, 6, 6)
+    assert r.is_contiguous() and r.data_ptr() % 4 != 0
+    got = tbn.bottleneck_s1(x, r, *one)
+    want = tbn.bottleneck_s1_plain(x, r, *one)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_ulp_tol(want, "bfloat16"))
+
+
+def test_cuda_bottleneck_plans_as_bottleneck_plan(cuda_device):
+    """The C entry's bf16 launch plan equals ``bottleneck_plan`` at the
+    seven face-mesh stages (B 64 and 65) and K5's extra shape."""
+    import ctypes
+    lib = tbn._lib()
+    shapes = [(b, hw, hw, c, d, c) for b in (64, 65) for hw, c, d in (
+        (128, 16, 8), (64, 32, 16), (32, 64, 32), (16, 128, 64),
+        (8, 128, 64), (4, 128, 64), (2, 128, 64))]
+    for shape in shapes + [(64, 128, 128, 16, 8, 32)]:
+        got = (ctypes.c_int * len(tbn.BottleneckPlan._fields))()
+        assert lib.bottleneck_plan(*shape, got) == 0
+        assert tuple(got) == tuple(tbn.bottleneck_plan(*shape))
+
+
+def test_cuda_bottleneck_bf16_without_a_plan_raises(cuda_device):
+    """bf16 operands never fall back to the f32 FMA kernel: a shape the
+    tensor-core route does not take raises."""
+    ops = [o[0] for o in _bn_units(2, 1, 12, 8, 12, torch.bfloat16,
+                                   cuda_device)]
+    x = torch.zeros((1, 12, 6, 6), device=cuda_device, dtype=torch.bfloat16)
+    n = tbn.bottleneck_s1.launches
+    with pytest.raises(ValueError):
+        tbn.bottleneck_s1(x, x, *ops)
+    assert tbn.bottleneck_s1.launches == n
+
+
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("cout,half,with_alpha", [(24, 56, False),
                                                   (16, 64, True),
@@ -284,6 +367,11 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
     tbn.bottleneck_s1(xb, xb, *(o[0] for o in ops))
     tbn.bottleneck_chain(xb, *ops)
     torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [k + 1 for k in n]
+    # A bf16 chain launches one kernel per unit but counts one call.
+    opb = _bn_units(1, 3, 16, 8, 16, torch.bfloat16, cuda_device)
+    tbn.bottleneck_chain(xb.to(torch.bfloat16), *opb)
+    n[-1] += 1
     assert [f.launches for f in fns] == [k + 1 for k in n]
     # The plain versions launch no kernel and count nothing.
     tbn.bottleneck_chain_plain(xb, *ops)
