@@ -18,6 +18,7 @@ per-channel PReLU (alpha None or 0 = ReLU); the output
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -81,6 +82,16 @@ def stem_packed_plain(crops_packed: Tensor, w: Tensor, b: Tensor,
     return v.to(crops_packed.dtype)
 
 
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built library with its entry's ctypes signature, set once."""
+    lib = build.load("stem_packed")
+    lib.stem_packed_launch.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.stem_packed_launch.restype = ctypes.c_int
+    return lib
+
+
 def stem_packed(crops_packed: Tensor, w: Tensor, b: Tensor,
                 alpha: Tensor | None = None) -> Tensor:
     """Fused stem over a batch of packed crops [B, 4*cin, S/2, S/2] ->
@@ -100,15 +111,12 @@ def stem_packed(crops_packed: Tensor, w: Tensor, b: Tensor,
     bsz = crops_packed.shape[0]
     out = torch.empty((bsz, cout, half, half), dtype=crops_packed.dtype,
                       device=dev)
-    lib = build.load("stem_packed")
-    fn = lib.stem_packed_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(crops_packed.data_ptr(), wmat.data_ptr(), bias.data_ptr(),
-             al.data_ptr(), out.data_ptr(), bsz, cin, cout, k, half,
-             int(crops_packed.dtype == torch.bfloat16),
-             torch.cuda.current_stream(dev).cuda_stream)
+    lib = _lib()
+    err = lib.stem_packed_launch(
+        crops_packed.data_ptr(), wmat.data_ptr(), bias.data_ptr(),
+        al.data_ptr(), out.data_ptr(), bsz, cin, cout, k, half,
+        int(crops_packed.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "stem_packed")
     stem_packed.launches += 1
     return out

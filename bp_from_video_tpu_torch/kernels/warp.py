@@ -16,6 +16,7 @@ f32 accumulation, ``* scale``, cast to ``out_dtype``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -81,6 +82,18 @@ def _packs(pack, n: int) -> tuple[int, ...]:
     return packs
 
 
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built library with its entry's ctypes signature, set once."""
+    lib = build.load("multi_crop")
+    lib.multi_crop_launch.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)] + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p]
+    lib.multi_crop_launch.restype = ctypes.c_int
+    return lib
+
+
 def multi_crop(frames_planar: Tensor, rects: Tensor,
                sizes: tuple[int, ...], dtype=torch.float32,
                out_dtype=torch.float32, scale: float = 1.0,
@@ -109,26 +122,22 @@ def multi_crop(frames_planar: Tensor, rects: Tensor,
     if not (frames_planar.is_cuda and rects.device == frames_planar.device):
         raise ValueError("multi_crop: frames and rects must share one "
                          "CUDA device")
-    if c > 8:
-        raise ValueError(f"multi_crop: at most 8 crops, got {c}")
+    if c > 8 or h < 2 or w < 2:
+        raise ValueError(f"multi_crop: at most 8 crops of frames of at "
+                         f"least 2x2, got {c} of {h}x{w}")
     frames_planar = frames_planar.contiguous()
     rects = rects.contiguous()
     per = [3 * p * p * (sz // p) ** 2 for sz, p in zip(sizes, packs)]
     buf = torch.empty(s * sum(per), dtype=out_dtype,
                       device=frames_planar.device)
-    lib = build.load("multi_crop")
-    fn = lib.multi_crop_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)] + [
-        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = _lib()
     c_sizes = (ctypes.c_int * c)(*sizes)
     c_packs = (ctypes.c_int * c)(*packs)
-    err = fn(frames_planar.data_ptr(), rects.data_ptr(), buf.data_ptr(),
-             c_sizes, c_packs, c, s, h, w, float(scale),
-             int(dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-             torch.cuda.current_stream(frames_planar.device).cuda_stream)
+    err = lib.multi_crop_launch(
+        frames_planar.data_ptr(), rects.data_ptr(), buf.data_ptr(), c_sizes,
+        c_packs, c, s, h, w, float(scale), int(dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(frames_planar.device).cuda_stream)
     build.check(lib, err, "multi_crop")
     multi_crop.launches += 1
     outs, off = [], 0

@@ -93,6 +93,39 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def ptxas_entries(name: str) -> list[str]:
+    """One line per kernel entry of a built source: its registers, static
+    shared bytes and spills, from the ``ptxas -v`` log of the build."""
+    import re
+    from bp_from_video_tpu_torch.kernels import build
+    out, fn = [], None
+    for line in build.ptxas_log(name).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            fn, spill = m.group(1), ""
+        elif "spill" in line and fn:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{fn}: {regs} registers, "
+                       f"{smem.group(1) if smem else 0} bytes static shared, "
+                       f"{spill}")
+            fn = None
+    return out
+
+
+def fp32_floor_ms(n_instr: float) -> float:
+    """Time for the card's FP32 lanes (128 an SM) to execute ``n_instr``
+    single-lane instructions at the card's highest SM clock."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_instr / (sms * 128 * float(mhz.stdout.split()[0]) * 1e6) * 1e3
+
+
 # -- synthetic clip and template heads ------------------------------------------
 
 
@@ -252,6 +285,11 @@ def check_multi_crop(gen, dev, s: int = 64):
     ms = time_ms(lambda: wk.multi_crop(*args, **kw))
     plain = time_ms(lambda: wk.multi_crop_plain(*args, **kw), reps=5)
     lib = time_ms(library)
+    for sz in sorted(set(sizes), reverse=True):
+        pick = [c for c, z in enumerate(sizes) if z == sz]
+        sub = (frames, rects[:, pick].contiguous(), (sz,) * len(pick))
+        log(f"K1 {len(pick)} crop(s) of {sz} alone: kernel "
+            f"{time_ms(lambda: wk.multi_crop(*sub, **kw)):.4f} ms")
     rows = _crop_spans(rects[..., 1], rects[..., 3], 256, h)
     cols = _crop_spans(rects[..., 0], rects[..., 2], 256, w)
     out_elems = sum(s * 3 * sz * sz for sz in sizes)
@@ -468,7 +506,7 @@ def check_stem_packed(gen, dev, s: int = 64):
     16 channels, PReLU) and the hand stand-in's (128 crops of 224, 24
     channels, ReLU)."""
     from bp_from_video_tpu_torch.kernels import stem as sk
-    tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0, flops=0)
+    tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0, flops=0, floor=0.0)
     errs = []
     for name, bsz, size, cout, prelu in (("face", s, 256, 16, True),
                                          ("hand", 2 * s, 224, 24, False)):
@@ -506,15 +544,18 @@ def check_stem_packed(gen, dev, s: int = 64):
         nbytes = (crops.numel() + got.numel()) * 2 + w.numel() * 2 + cout * 8
         flops = 2.0 * bsz * cout * 27 * half * half
         bnd, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+        # A bit-equal stem runs one FMUL and one FADD per tap and output.
+        floor = fp32_floor_ms(flops)
         log(f"K2 {name} times: kernel {ms:.4f} ms, plain {pl:.4f} ms, "
-            f"conv2d+act {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+            f"conv2d+act {lib:.4f} ms ({ms / lib:.3f}x), bound {bnd:.4f} ms "
+            f"({by}), FP32 instruction floor {floor:.4f} ms")
         for k, v in (("ms", ms), ("plain", pl), ("lib", lib),
-                     ("bytes", nbytes), ("flops", flops)):
+                     ("bytes", nbytes), ("flops", flops), ("floor", floor)):
             tot[k] += v
     b, by = bound_ms(tot["bytes"], tot["flops"], BF16_TENSOR_FLOPS)
     log(f"K2 per step (2 launches): kernel {tot['ms']:.4f} ms, plain "
         f"{tot['plain']:.4f} ms, conv2d+act {tot['lib']:.4f} ms, bound "
-        f"{b:.4f} ms ({by})")
+        f"{b:.4f} ms ({by}), FP32 instruction floor {tot['floor']:.4f} ms")
     return dict(name="stem_packed", route="cuda",
                 source="bp_from_video_tpu_torch/csrc/stem_packed.cu",
                 replaces="bp_from_video_tpu/pallas/stem_kernel.py:136",
@@ -937,9 +978,8 @@ def main():
     log(f"phase 1: built {list(secs)} in {time.perf_counter() - t:.2f} s")
     for name in build.SOURCES:
         build.load(name)
-        for line in build.ptxas_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for line in ptxas_entries(name):
+            log(f"  {name}: {line}")
 
     from bp_from_video_tpu_torch.config import flagship_config
     from bp_from_video_tpu_torch.runtime.engine import Engine

@@ -92,6 +92,39 @@ def test_cuda_multi_crop_matches_plain(cuda_device, dt):
     assert torch.equal(got[1][0], torch.zeros_like(got[1][0]))
 
 
+@pytest.mark.parametrize("dt,out_dt", [("float32", "float32"),
+                                       ("bfloat16", "bfloat16"),
+                                       ("bfloat16", "float32")])
+@pytest.mark.parametrize("sizes,packs", [
+    ((24, 26, 40, 18), (2, 2, 2, 1)),    # packed sides 12, 13, 20, 18
+    ((32, 25, 64, 20), (2, 1, 2, 2)),    # 16, 25, 32, 10: odd offsets
+])
+def test_cuda_multi_crop_runs_match_plain(cuda_device, sizes, packs, dt,
+                                          out_dt):
+    """Odd packed sides (a ragged run of 2 outputs), even ones at an odd
+    element offset after them (scalar stores), mixed packs, crops across
+    and wholly past the frame's edges, a NaN rect, S = 3, scale != 1."""
+    frames, rects = _crop_inputs(seed=5, s=3, h=40, w=56, c=len(sizes))
+    rects[0, 0, :2] = (-4.0, 30.0)        # across the left edge
+    rects[1, 1, :2] = (50.0, 38.0)        # across the bottom-right corner
+    rects[2, 2, :2] = (120.0, -90.0)      # wholly off the frame
+    rects[2, 3] = np.nan
+    f = torch.from_numpy(frames).to(cuda_device)
+    r = torch.from_numpy(rects).to(cuda_device)
+    kw = dict(dtype=_DT[dt], out_dtype=_DT[out_dt], scale=0.5 / 255.0,
+              pack=packs)
+    got = twk.multi_crop(f, r, sizes, **kw)
+    want = twk.multi_crop_plain(f, r, sizes, **kw)
+    torch.cuda.synchronize()
+    for g, t in zip(got, want):
+        assert g.shape == t.shape and g.dtype == t.dtype
+        # As above: one bf16 ulp at the crops' [0, 1) scale.
+        torch.testing.assert_close(g.float(), t.float(), atol=2.0 ** -8,
+                                   rtol=0)
+    assert not got[2][2].any()
+    assert not got[3][2].any()
+
+
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bsz,h,w,cin,cout,resid,act", [
     (2, 16, 16, 3, 24, False, "prelu"),    # stand-in stem, cout 24 ragged
@@ -329,6 +362,49 @@ def test_cuda_stem_packed_matches_plain(cuda_device, cout, half, with_alpha,
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,cin", [(1, 1), (1, 3), (2, 1), (2, 3), (3, 1),
+                                   (3, 3)])
+@pytest.mark.parametrize("half,cout", [(7, 8), (13, 12), (57, 16),
+                                       (128, 24)])
+def test_cuda_stem_packed_tiles_match_plain(cuda_device, half, cout, k, cin,
+                                            dt):
+    """Runs of 8 pixels with a ragged tail (7, 13, 57) or 16-byte rows
+    (128), channel tiles of 8 with a partial one (12), every stem width."""
+    td = _DT[dt]
+    rng = np.random.default_rng(half * 100 + cout + 10 * k + cin)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(  # noqa: E731
+        cuda_device)
+    crops = t(rng.uniform(-1, 1, (2, 4 * cin, half, half))).to(td)
+    w = t(rng.normal(0, 0.3, (k, k, cin, cout))).to(td)
+    b = t(rng.normal(0, 0.1, (cout,)))
+    alpha = t(rng.uniform(0.05, 0.5, (cout,))) if cout % 8 else None
+    got = tsk.stem_packed(crops, w, b, alpha)
+    want = tsk.stem_packed_plain(crops, w, b, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_cuda_stem_packed_takes_unaligned_views(cuda_device, dt):
+    """A crop view one element off 16-byte alignment takes the scalar
+    loads and stays bit-equal."""
+    td = _DT[dt]
+    rng = np.random.default_rng(4)
+    n = 2 * 12 * 16 * 16
+    flat = torch.from_numpy(rng.uniform(0, 1, n + 1).astype(np.float32)).to(
+        cuda_device).to(td)
+    crops = flat[1:].view(2, 12, 16, 16)
+    assert crops.is_contiguous() and crops.data_ptr() % 16 != 0
+    w = torch.from_numpy(rng.normal(0, 0.2, (3, 3, 3, 16)).astype(
+        np.float32)).to(cuda_device).to(td)
+    b = torch.zeros(16, device=cuda_device)
+    got = tsk.stem_packed(crops, w, b)
+    want = tsk.stem_packed_plain(crops, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def test_cuda_division_by_a_tensor_matches_the_cpu(cuda_device):
     """The port divides by a tensor (IEEE f32) where card and CPU must
     agree: CUDA PyTorch turns a division by a Python scalar into a
@@ -396,3 +472,7 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         tsk.stem_packed(torch.zeros((1, 16, 4, 4), device=cuda_device),
                         torch.zeros((3, 3, 4, 8), device=cuda_device),
                         torch.zeros(8, device=cuda_device))
+    with pytest.raises(ValueError):           # a frame under 2x2 pixels
+        twk.multi_crop(torch.zeros((1, 3, 1, 8), dtype=torch.uint8,
+                                   device=cuda_device),
+                       torch.zeros((1, 1, 4), device=cuda_device), (4,))

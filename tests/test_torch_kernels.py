@@ -68,6 +68,37 @@ def test_multi_crop_matches_pallas(dt, pack):
     np.testing.assert_array_equal(_f32(got[2])[1], 0.0)
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_multi_crop_odd_sides_match_pallas(dt):
+    """Odd packed sides (13, 9, 9) beside an even one (12), mixed packs,
+    S = 3, crops across and wholly past the frame's edges, a NaN rect."""
+    frames, rects = _crop_inputs(seed=6, s=3, c=4)
+    rects[0, 0, :2] = (-4.0, 30.0)        # across the left edge
+    rects[1, 1, :2] = (50.0, 38.0)        # across the bottom-right corner
+    rects[2, 2, :2] = (120.0, -90.0)      # wholly off the frame
+    rects[2, 3] = np.nan
+    sizes, packs = (24, 26, 18, 9), (2, 2, 2, 1)
+    jd, td = _DT[dt]
+    want = jwk.multi_crop(jnp.asarray(frames), jnp.asarray(rects), sizes,
+                          interpret=True, dtype=jd, out_dtype=jd,
+                          scale=0.5 / 255.0, pack=packs)
+    got = twk.multi_crop(torch.from_numpy(frames), torch.from_numpy(rects),
+                         sizes, dtype=td, out_dtype=td, scale=0.5 / 255.0,
+                         pack=packs)
+    for g, t in zip(got, want):
+        assert tuple(g.shape) == t.shape and g.dtype == td
+        g, t = _f32(g), _f32(t)
+        # The tolerances of test_multi_crop_matches_pallas, at half the
+        # scale.
+        if dt == "float32":
+            np.testing.assert_allclose(g, t, atol=3e-5, rtol=0)
+        else:
+            np.testing.assert_allclose(g, t, atol=2.0 ** -8, rtol=0)
+            assert np.mean(g != t) < 0.01
+    np.testing.assert_array_equal(_f32(got[2])[2], 0.0)
+    np.testing.assert_array_equal(_f32(got[3])[2], 0.0)
+
+
 def _block_case(seed, cin, cout, hw, dt):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((2, 4 * cin, hw, hw)).astype(np.float32)

@@ -50,6 +50,32 @@ def test_stem_packed_matches_pallas_and_reference(cout, half, with_alpha, dt):
     np.testing.assert_allclose(_f32(got), ref, atol=tol, rtol=0)
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,cin,cout,half", [(1, 1, 12, 13), (1, 3, 8, 7),
+                                             (2, 1, 16, 13), (2, 3, 12, 7),
+                                             (3, 1, 12, 13)])
+def test_stem_packed_odd_shapes_match_pallas(k, cin, cout, half, dt):
+    """Stems narrower than 3x3 or of one input channel, at grid sides and
+    channel counts off the card kernel's runs and tiles of 8."""
+    rng = np.random.default_rng(10 * k + cin)
+    jd, td = _DT[dt]
+    crops = rng.uniform(-1, 1, (2, 4 * cin, half, half)).astype(np.float32)
+    w = rng.normal(0, 0.3, (k, k, cin, cout)).astype(np.float32)
+    b = rng.normal(0, 0.1, (cout,)).astype(np.float32)
+    alpha = rng.uniform(0.05, 0.5, (cout,)).astype(np.float32)
+    jc, jw = jnp.asarray(crops, jd), jnp.asarray(w, jd)
+    ja = jnp.asarray(alpha)
+    kern = _f32(jsk.stem_packed(jc, jw, jnp.asarray(b), ja, interpret=True))
+    ref = _f32(jsk.stem_packed_reference(jc, jw, jnp.asarray(b), ja))
+    got = tsk.stem_packed(torch.from_numpy(crops).to(td),
+                          torch.from_numpy(w).to(td), torch.from_numpy(b),
+                          torch.from_numpy(alpha))
+    assert tuple(got.shape) == (2, cout, half, half) and got.dtype == td
+    tol = (1e-5 if dt == "float32" else 2.0 ** -8) * float(np.abs(ref).max())
+    np.testing.assert_allclose(_f32(got), kern, atol=tol, rtol=0)
+    np.testing.assert_allclose(_f32(got), ref, atol=tol, rtol=0)
+
+
 def test_stem_packed_rejects_wide_kernels_and_bad_shapes():
     crops = torch.zeros((1, 12, 8, 8))
     b = torch.zeros(4)
