@@ -35,7 +35,7 @@
 //   the 8 rows of an ldmatrix (8 neighbouring pixels) fall on 8 distinct
 //   bank groups.  At the deep stages the kernel most likely waits on this
 //   load (more loading warps made them faster; no counters show it), the
-//   next thing to redesign (ROADMAP Queue 4).
+//   next thing to redesign (ROADMAP Queue 2).
 // - No window matrix: the B operand of mma.m16n8k16 (bf16 in, f32 sums) is
 //   read with ldmatrix straight from the tile.  A k-group of 8 window rows
 //   always lies in one tap (sliced: cin % 8 == 0; expanded: 8 channels of

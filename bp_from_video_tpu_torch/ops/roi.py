@@ -4,8 +4,8 @@
 
 The crop-and-mean is a separable masked reduction with numpy slice
 semantics (negative wrap, clamp, empty slice -> NaN).  ``sample_rois_batch``
-with ``use_pallas`` routes through kernel K4 (``kernels/roi.roi_sums``: the
-CUDA kernel for a CUDA tensor, its plain version for a CPU tensor).
+with ``use_pallas`` routes through kernel K4 (``kernels/roi.roi_samples``:
+the CUDA kernel for a CUDA tensor, its plain version for a CPU tensor).
 """
 
 from __future__ import annotations
@@ -89,15 +89,6 @@ def _slice_indicator(start: Tensor, stop: Tensor, size: int) -> Tensor:
     return ((i >= s) & (i < e)).to(torch.float32)
 
 
-def _mix_channel(means: Tensor, channel: SignalColorChannel) -> Tensor:
-    if channel is SignalColorChannel.GREEN:
-        return means[..., 1]
-    if channel is SignalColorChannel.CHROM_GREEN:
-        return (means[..., 1] / 2.0 - means[..., 2] / 4.0
-                - means[..., 0] / 4.0 + 0.5)
-    raise NotImplementedError(channel)  # pragma: no cover
-
-
 def sample_rois(frames_rgb: Tensor, rois: Tensor,
                 channel: SignalColorChannel,
                 weights: Tensor | None = None) -> Tensor:
@@ -122,7 +113,7 @@ def sample_rois(frames_rgb: Tensor, rois: Tensor,
         sums = torch.einsum("srw,srwc->src", q, tmp)
     valid = finite & (denom > 0)
     means = sums / torch.where(denom > 0, denom, 1.0)[..., None]
-    return torch.where(valid, _mix_channel(means, channel), _NAN)
+    return torch.where(valid, roi_kernel.mix_channel(means, channel), _NAN)
 
 
 def is_planar_frames(frames: Tensor) -> bool:
@@ -138,16 +129,12 @@ def sample_rois_batch(frames_rgb: Tensor, rois: Tensor,
     """Stream-batched ROI sampling: frames [S, H, W, 3] or planar
     [S, 3, H, W] + rois [S, R, 6] -> f32[S, R].  ``use_pallas`` (the JAX
     config's name for the fused kernel path) routes uint8 frames through
-    kernel K4; identical NaN semantics either way."""
+    kernel K4's sample entry, one launch for sums, means and the channel
+    mix; identical NaN semantics either way."""
     planar_in = is_planar_frames(frames_rgb)
     if not (use_pallas and frames_rgb.dtype == torch.uint8):
         nhwc = frames_rgb.permute(0, 2, 3, 1) if planar_in else frames_rgb
         return sample_rois(nhwc, rois, channel, weights)
-    finite = torch.isfinite(rois).all(-1)                    # [S, R]
-    safe = torch.where(finite[..., None], torch.nan_to_num(rois), 0.0)
     planar = (frames_rgb if planar_in
               else frames_rgb.permute(0, 3, 1, 2).contiguous())
-    sums, den = roi_kernel.roi_sums(planar, safe.contiguous(), weights)
-    means = sums / torch.where(den > 0, den, 1.0)[..., None]
-    valid = finite & (den > 0)
-    return torch.where(valid, _mix_channel(means, channel), _NAN)
+    return roi_kernel.roi_samples(planar, rois, channel, weights)

@@ -9,8 +9,9 @@ Phases (each fatal on failure):
 2. hold each of the six kernels against its plain PyTorch version on the
    card at the flagship shapes (64 streams of 480x640, bf16; K3 at its 11
    launch shapes; K5/K6 at all seven face-mesh stage shapes; both SASS
-   checked for tensor-core HMMA instructions), and time the kernel, the plain
-   version and a PyTorch yardstick with CUDA events;
+   checked for tensor-core HMMA instructions; K4 through both its entries,
+   at the flagship ROI sizes), and time the kernel, the plain version and a
+   PyTorch yardstick with CUDA events;
 3. run the flagship ``Engine.batch_step`` (``flagship_config()``) over a
    synthetic pulsing clip long enough to fill the 250-sample ring, with the
    kernels' launch counters set to 0 just before and read just after:
@@ -442,7 +443,28 @@ def check_dense_s2_block(engine, gen, dev, s: int = 64):
                 bound_ms=b, bound_by=by, library_ms=tot["lib"])
 
 
-def check_roi_sums(gen, dev, s: int = 64):
+def _roi_terms(frames, rois, weights, channel):
+    """The plain version's sums [S, R, 3] of ``rois`` (non-finite rows as
+    empty rects) and the magnitude of the terms the sample mixes from their
+    means [S, R]: a sample's rounding is set against it."""
+    from bp_from_video_tpu_torch.kernels import roi as rk
+    safe = torch.where(torch.isfinite(rois).all(-1, keepdim=True),
+                       torch.nan_to_num(rois), 0.0)
+    sums, den = rk.roi_sums_plain(frames, safe, weights)
+    m = sums / torch.where(den > 0, den, 1.0)[..., None]
+    m = m.abs()
+    if channel.name == "GREEN":
+        return sums, m[..., 1]
+    return sums, m[..., 1] / 2 + m[..., 2] / 4 + m[..., 0] / 4
+
+
+def check_roi(gen, dev, s: int = 64):
+    """K4's two entries: ``roi_sums`` on random rects (the full frame of
+    255s among them), and ``roi_samples`` (the main path's entry) on those
+    and on the flagship ROI sizes with lost rows, both channels, weighted
+    and not, against their plain versions; then both timed at the flagship
+    ROI sizes and on the random rects."""
+    from bp_from_video_tpu_torch.config import SignalColorChannel
     from bp_from_video_tpu_torch.kernels import roi as rk
     h, w = 480, 640
     frames = torch.full((s, 3, h, w), 255, dtype=torch.uint8, device=dev)
@@ -471,34 +493,103 @@ def check_roi_sums(gen, dev, s: int = 64):
             f"sums past 2^24 round in another order)")
         if not ok:
             fail(f"roi_sums ({tag}) disagrees with its plain version")
-        out[tag] = err
-    # Main-path shapes: two ROIs of up to ~70x70 per stream, unweighted.
-    main = rois.clone()
+        out[f"roi_sums {tag}"] = err
+    # The flagship ROI sizes: a 56x42 forehead and a 40x40 palm per stream
+    # (0.20 x 0.15 of a 280-pixel face box; the palm config) at random
+    # places, every residue of x0 and x1 modulo 4 among them.
+    size = torch.tensor([[56.0, 42.0], [40.0, 40.0]], device=dev)
+    room = torch.tensor([w, h], device=dev) - size
+    lo = torch.floor(torch.rand((s, 2, 2), generator=gen, device=dev) * room)
+    flag = torch.cat([lo + size // 2, lo, lo + size], -1)      # [S, 2, 6]
+    lost = flag.clone()
+    lost[5, 0] = float("nan")                       # a lost face
+    lost[6, 1, 0] = float("nan")                    # one non-finite entry
+    lost[7, 1, 4] = float("inf")
+    for name, rr in (("flagship ROIs with lost rows", lost),
+                     ("random rects", rois)):
+        for wt in (None, weights):
+            for ch in SignalColorChannel:
+                got = rk.roi_samples(frames, rr, ch, wt)
+                want = rk.roi_samples_plain(frames, rr, ch, wt)
+                sums, terms = _roi_terms(frames, rr, wt, ch)
+                torch.cuda.synchronize()
+                # Bit-equal below 2^24 unweighted; past it, and weighted,
+                # each mean to the sums' rtol.
+                rtol = (torch.where(sums.amax(-1) >= 2 ** 24, 1e-6, 0.0)
+                        if wt is None else 1e-5)
+                nan = torch.isnan(want)
+                d = (got.masked_fill(nan, 0) - want.masked_fill(nan, 0)).abs()
+                ok = (torch.equal(torch.isnan(got), nan)
+                      and bool((d <= rtol * terms.masked_fill(nan, 0)).all()))
+                tag = (f"{name}, {ch.name}, "
+                       f"{'weighted' if wt is not None else 'unweighted'}")
+                log(f"K4 roi_samples {tag}: max_abs_err {float(d.max()):.3g}"
+                    f", NaN rows {int(nan.sum())} (bit-equal below 2^24 "
+                    f"unweighted; rtol of the mixed means past it 1e-6, "
+                    f"weighted 1e-5)")
+                if not ok:
+                    fail(f"roi_samples ({tag}) disagrees with its plain "
+                         "version")
+                out[f"roi_samples {tag}"] = float(d.max())
+    green = SignalColorChannel.GREEN
+
+    def sums_then_epilogue(rr):
+        """The main path's route before the sample entry: K4's sums and the
+        caller's ten PyTorch kernels around them."""
+        finite = torch.isfinite(rr).all(-1)
+        safe = torch.where(finite[..., None], torch.nan_to_num(rr), 0.0)
+        sums, den = rk.roi_sums(frames, safe.contiguous())
+        means = sums / torch.where(den > 0, den, 1.0)[..., None]
+        return torch.where(finite & (den > 0), rk.mix_channel(means, green),
+                           float("nan"))
+
+    def library(host_rois):
+        return [frames[i, :, int(r[3]):int(r[5]), int(r[2]):int(r[4])]
+                .sum((1, 2)) for i, row in enumerate(host_rois) for r in row]
+    t = {}
+    main = rois.clone()                  # PR 7's timing set: no 2^24 rect
     main[0, 0] = rois[1, 0]
     main[2, 1], main[3, 1] = rois[1, 1], rois[4, 1]
-
-    def library():
-        return [frames[i, :, int(r[3]):int(r[5]), int(r[2]):int(r[4])]
-                .sum((1, 2)) for i, rr in enumerate(main_host)
-                for r in rr]
-    main_host = main.cpu().tolist()
-    ms = time_ms(lambda: rk.roi_sums(frames, main))
-    plain = time_ms(lambda: rk.roi_sums_plain(frames, main))
-    lib = time_ms(library, reps=5)
-    g = torch.arange(h, device=dev)
-    rows = (g >= main[..., 3, None]) & (g < main[..., 5, None])
-    g = torch.arange(w, device=dev)
-    cols = (g >= main[..., 2, None]) & (g < main[..., 4, None])
-    npx = _union_pixels(rows, cols)
-    nbytes = 3 * npx + main.numel() * 4 + s * 2 * 4 * 4
-    b, by = bound_ms(nbytes, 3.0 * npx, F32_FLOPS)
-    log(f"K4 times (unweighted, 2 ROIs/stream): kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, slice sums {lib:.4f} ms, bound {b:.6f} ms ({by})")
+    for key, rr in (("flagship", flag), ("random", main)):
+        host = rr.cpu().tolist()
+        t[key] = dict(
+            samples=time_ms(lambda: rk.roi_samples(frames, rr, green)),
+            samples_plain=time_ms(
+                lambda: rk.roi_samples_plain(frames, rr, green)),
+            sums=time_ms(lambda: rk.roi_sums(frames, rr)),
+            sums_plain=time_ms(lambda: rk.roi_sums_plain(frames, rr)),
+            sums_then_epilogue=time_ms(lambda: sums_then_epilogue(rr)),
+            library=time_ms(lambda: library(host), reps=5))
+        g = torch.arange(h, device=dev)
+        rows = (g >= rr[..., 3, None]) & (g < rr[..., 5, None])
+        g = torch.arange(w, device=dev)
+        cols = (g >= rr[..., 2, None]) & (g < rr[..., 4, None])
+        npx = _union_pixels(rows, cols)
+        # Pixels of 3 planes and the ROIs read once, the samples written.
+        nbytes = 3 * npx + rr.numel() * 4 + s * 2 * 4
+        t[key]["bound"], t[key]["by"] = bound_ms(nbytes, 3.0 * npx,
+                                                 F32_FLOPS)
+        log(f"K4 times ({key} ROIs, 2 a stream, unweighted, GREEN): "
+            f"roi_samples {t[key]['samples']:.4f} ms (plain "
+            f"{t[key]['samples_plain']:.4f}), roi_sums {t[key]['sums']:.4f} "
+            f"ms (plain {t[key]['sums_plain']:.4f}), roi_sums + the ten-op "
+            f"epilogue {t[key]['sums_then_epilogue']:.4f} ms, slice sums "
+            f"{t[key]['library']:.4f} ms, bound {t[key]['bound']:.6f} ms "
+            f"({t[key]['by']}; {nbytes} bytes)")
+    f = t["flagship"]
+    lost_all = torch.full_like(flag, float("nan"))
+    log(f"K4 roi_samples with every ROI row lost (no pixel read): "
+        f"{time_ms(lambda: rk.roi_samples(frames, lost_all, green)):.4f} ms")
     return dict(name="roi_sums", route="cuda",
                 source="bp_from_video_tpu_torch/csrc/roi_sums.cu",
                 replaces="bp_from_video_tpu/pallas/roi_kernel.py:114",
-                max_abs_err=max(out.values()), ms=ms, plain_ms=plain,
-                bound_ms=b, bound_by=by, library_ms=lib)
+                max_abs_err=max(out.values()), ms=f["samples"],
+                plain_ms=f["samples_plain"], bound_ms=f["bound"],
+                bound_by=f["by"], library_ms=f["library"],
+                entries={"roi_samples": dict(ms=f["samples"],
+                                             plain_ms=f["samples_plain"]),
+                         "roi_sums": dict(ms=f["sums"],
+                                          plain_ms=f["sums_plain"])})
 
 
 def check_stem_packed(gen, dev, s: int = 64):
@@ -710,7 +801,7 @@ def counters():
                                                  warp)
     return {"multi_crop": warp.multi_crop, "stem_packed": stem.stem_packed,
             "dense_s2_block": block.dense_s2_block,
-            "roi_sums": roi.roi_sums,
+            "roi_sums": roi.roi_sums, "roi_samples": roi.roi_samples,
             "bottleneck_s1": bottleneck.bottleneck_s1,
             "bottleneck_chain": bottleneck.bottleneck_chain}
 
@@ -730,17 +821,18 @@ def run_clip(engine, params, state, clip, t0: int = 0):
     return state, out
 
 
-# Launches per step of each flagship path: K1 crops and K4 samples once;
-# K3 runs the hand net's stem and four blocks, plus the face net's stem
-# and, for the stand-in face net, its four blocks.
+# Launches per step of each flagship path: K1 crops and K4 samples once
+# (through its sample entry; its sums entry 0 times); K3 runs the hand
+# net's stem and four blocks, plus the face net's stem and, for the
+# stand-in face net, its four blocks.
 PER_STEP = {
-    "standin": {"multi_crop": 1, "dense_s2_block": 10, "roi_sums": 1},
-    "mesh": {"multi_crop": 1, "dense_s2_block": 6, "roi_sums": 1,
+    "standin": {"multi_crop": 1, "dense_s2_block": 10, "roi_samples": 1},
+    "mesh": {"multi_crop": 1, "dense_s2_block": 6, "roi_samples": 1,
              "bottleneck_chain": 1},
     "mesh, fused_trunk off": {"multi_crop": 1, "stem_packed": 2,
-                              "roi_sums": 1},
+                              "roi_samples": 1},
     "mesh, every stage fused": {"multi_crop": 1, "dense_s2_block": 6,
-                                "roi_sums": 1, "bottleneck_chain": 7},
+                                "roi_samples": 1, "bottleneck_chain": 7},
 }
 
 
@@ -987,7 +1079,7 @@ def main():
     k5, k6 = check_bottleneck(gen, dev)
     kernels = [check_multi_crop(gen, dev), check_stem_packed(gen, dev),
                check_dense_s2_block(Engine(flagship_config()), gen, dev),
-               check_roi_sums(gen, dev), k5, k6]
+               check_roi(gen, dev), k5, k6]
     log("phase 2: every kernel agrees with its plain version")
     torch.cuda.empty_cache()
 
@@ -1020,9 +1112,16 @@ def main():
 
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        for name, entry in k.get("entries", {}).items():
+            entry["launches"] = launches[name]
+    # K4's row counts the launches of both its entries.
+    k4 = next(k for k in kernels if "entries" in k)
+    k4["launches"] = sum(e["launches"] for e in k4["entries"].values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: d[k] for k in keys} for d in kernels]}))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "entries")
+    log(json.dumps({"kernels": [{k: d[k] for k in keys if k in d}
+                                for d in kernels]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

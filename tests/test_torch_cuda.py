@@ -1,5 +1,5 @@
 """The port's CUDA kernels K1 (multi_crop), K2 (stem_packed), K3
-(dense_s2_block), K4 (roi_sums), K5 (bottleneck_s1) and K6
+(dense_s2_block), K4 (roi_sums and roi_samples), K5 (bottleneck_s1) and K6
 (bottleneck_chain) against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA card: it carries the ``cuda`` marker and
@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from bp_from_video_tpu_torch.config import SignalColorChannel
 from bp_from_video_tpu_torch.kernels import block as tbk
 from bp_from_video_tpu_torch.kernels import bottleneck as tbn
 from bp_from_video_tpu_torch.kernels import roi as trk
@@ -191,6 +192,161 @@ def test_cuda_roi_sums_matches_plain(cuda_device, weighted):
     else:
         # Integer sums far below 2^24: exact.
         assert torch.equal(gs, ws) and torch.equal(gd, wd)
+
+
+def _edge_rois(h, w):
+    """[5, 8, 6] ROIs: x0 and x1 at every residue modulo 4 (across words and
+    inside one word), one-row, one-column, empty, wrapping and clamped
+    rects, the whole frame, and rows with NaN and inf entries."""
+    rects = [(8 + a, 3, 20 + b, 17) for a in range(4) for b in range(4)]
+    rects += [(4 + a, 5 + a, 5 + b, 9) for a in range(4)
+              for b in range(a, 4)]
+    rects += [(3, 7, 41, 8), (13, 2, 14, 33), (9, 9, 9, 30), (6, 12, 30, 12),
+              (-9, -11, -1, -3), (-200, 5, 200, 39), (0, 0, w, h),
+              (1, 1, 2, 2)]
+    rois = np.zeros((40, 6), np.float32)
+    rois[:len(rects), 2:] = rects
+    rois[:, :2] = rois[:, 2:4]
+    rois[len(rects)] = np.nan
+    rois[len(rects) + 1, 5] = np.inf
+    rois[len(rects) + 2, 0] = np.nan
+    rois[len(rects) + 3, 2] = -np.inf
+    return rois.reshape(5, 8, 6)
+
+
+def _same_samples(got, want):
+    """NaN exactly where the plain version has NaN, bit-equal elsewhere."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0))
+
+
+_ROI_ROUTES = [(r, False) for r in ("word", "odd_width", "frames_offset")] + [
+    (r, True) for r in ("word", "odd_width", "frames_offset",
+                        "weights_offset")]
+
+
+@pytest.mark.parametrize("channel", ["GREEN", "CHROM_GREEN"])
+@pytest.mark.parametrize("route,weighted", _ROI_ROUTES)
+def test_cuda_roi_entries_match_plain_on_both_routes(cuda_device, route,
+                                                     weighted, channel):
+    """Both K4 entries against their plain versions at every word residue
+    of the rect's edges, on the word route (w % 4 == 0, aligned operands)
+    and the byte route (an odd width, or a frame or weight view at an
+    address off the word grid)."""
+    h, w = 40, 62 if route == "odd_width" else 64
+    rng = np.random.default_rng(11)
+    frames = torch.from_numpy(rng.integers(0, 256, (5, 3, h, w),
+                                           dtype=np.uint8)).to(cuda_device)
+    if route == "frames_offset":
+        buf = torch.empty(frames.numel() + 1, dtype=torch.uint8,
+                          device=cuda_device)
+        frames = buf[1:].view(frames.shape).copy_(frames)
+    wts = None
+    if weighted:
+        wts = torch.from_numpy(rng.uniform(0, 1, (5, h, w)).astype(
+            np.float32)).to(cuda_device)
+        if route == "weights_offset":
+            buf = torch.empty(wts.numel() + 1, device=cuda_device)
+            wts = buf[1:].view(wts.shape).copy_(wts)
+    assert trk.word_route(frames, wts) == (route == "word")
+    rois = torch.from_numpy(_edge_rois(h, w)).to(cuda_device)
+    ch = SignalColorChannel[channel]
+    got = trk.roi_samples(frames, rois, ch, wts)
+    want = trk.roi_samples_plain(frames, rois, ch, wts)
+    safe = torch.where(torch.isfinite(rois).all(-1, keepdim=True), rois, 0.0)
+    gs, gd = trk.roi_sums(frames, safe, wts)
+    ws, wd = trk.roi_sums_plain(frames, safe, wts)
+    torch.cuda.synchronize()
+    if weighted:
+        # f32 products pixel * weight summed in another order.
+        torch.testing.assert_close(gs, ws, rtol=1e-5, atol=1e-3)
+        torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-5)
+        # Each mean within rtol 1e-5 as the sample mixes it: CHROM_GREEN's
+        # g/2 - b/4 - r/4 cancels to about 0.5, so the error is set against
+        # the terms' magnitudes.
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        m = ws / torch.where(wd > 0, wd, 1.0)[..., None]
+        terms = (m[..., 1] / 2 + m[..., 2] / 4 + m[..., 0] / 4
+                 if ch is SignalColorChannel.CHROM_GREEN else m[..., 1])
+        d = (got.masked_fill(nan, 0.0) - want.masked_fill(nan, 0.0)).abs()
+        assert bool((d <= 1e-5 * terms).all())
+    else:
+        # Integer sums far below 2^24: exact, and the sample bit-equal.
+        assert torch.equal(gs, ws) and torch.equal(gd, wd)
+        _same_samples(got, want)
+    # Two empty spans, two all-zero rows and four non-finite rows.
+    assert int(torch.isnan(want).sum()) == 8
+
+
+def test_cuda_roi_entries_past_2_24(cuda_device):
+    """Sums past 2^24 (4e7-7.8e7): a whole 480x640 frame of 255s, a whole
+    random frame, and a rect with edges off the word grid on each.  The
+    kernel's integer sums round once to f32: equal to the exact sums so
+    rounded, and the samples bit-equal to the plain composition applied to
+    those.  The plain version's f32 partial sums round on the way: on the
+    whole frames rtol 1e-6 between the two, on the sums and on each channel
+    mean as the sample mixes it (CHROM_GREEN's g/2 - b/4 - r/4 cancels to
+    about 0.5, so its error is set against the terms' magnitudes).  The
+    plain version's rounding on the offset rect of 255s reaches 2e-6 of the
+    sum on the CPU, so that rect is held to the exact sums only."""
+    h, w = 480, 640
+    rng = np.random.default_rng(12)
+    frames = np.full((2, 3, h, w), 255, np.uint8)
+    frames[1] = rng.integers(0, 256, (3, h, w), dtype=np.uint8)
+    rois = np.array([[[0, 0, 0, 0, w, h], [0, 0, 3, 1, 637, 479]]] * 2,
+                    np.float32)
+    f = torch.from_numpy(frames).to(cuda_device)
+    r = torch.from_numpy(rois).to(cuda_device)
+    exact = torch.from_numpy(np.stack([[
+        frames[i, :, y0:y1, x0:x1].astype(np.int64).sum((1, 2))
+        for (_, _, x0, y0, x1, y1) in rois[i].astype(int)]
+        for i in range(2)])).float().to(cuda_device)
+    gs, gd = trk.roi_sums(f, r)
+    ws, wd = trk.roi_sums_plain(f, r)
+    torch.cuda.synchronize()
+    assert torch.equal(gs, exact) and torch.equal(gd, wd)
+    torch.testing.assert_close(gs[:, 0], ws[:, 0], rtol=1e-6, atol=0)
+    for ch in SignalColorChannel:
+        got = trk.roi_samples(f, r, ch)
+        want = trk.roi_samples_plain(f, r, ch)
+        means = exact / gd[..., None]
+        from_exact = trk.mix_channel(means, ch)
+        torch.cuda.synchronize()
+        _same_samples(got, from_exact)
+        terms = (means[..., 1] / 2 + means[..., 2] / 4 + means[..., 0] / 4
+                 if ch is SignalColorChannel.CHROM_GREEN else means[..., 1])
+        assert bool(((got - want).abs() <= 1e-6 * terms)[:, 0].all())
+    assert torch.equal(trk.roi_samples(f, r, SignalColorChannel.GREEN)[0, 0],
+                       torch.tensor(255.0, device=cuda_device))
+
+
+def test_cuda_roi_word_route_refuses_unaligned_operands(cuda_device):
+    """The C entry checks the word route's alignment itself: asked for words
+    of frames at an odd address, it returns an error and launches
+    nothing."""
+    import ctypes
+
+    from bp_from_video_tpu_torch.kernels import build
+    lib = build.load("roi_sums")
+    fn = lib.roi_samples_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    buf = torch.zeros(2 * 3 * 8 * 8 + 1, dtype=torch.uint8,
+                      device=cuda_device)
+    rois = torch.zeros((2, 1, 6), device=cuda_device)
+    out = torch.zeros((2, 1), device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    for ptr, vec, channel in ((buf.data_ptr() + 1, 4, 1),
+                              (buf.data_ptr(), 4, 0),
+                              (buf.data_ptr(), 2, 1)):
+        assert fn(ptr, rois.data_ptr(), None, out.data_ptr(), 2, 1, 8, 8,
+                  vec, channel, stream) != 0
+    assert fn(buf.data_ptr(), rois.data_ptr(), None, out.data_ptr(), 2, 1,
+              8, 8, 4, 1, stream) == 0
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out).all())         # empty rects
 
 
 def _bn_units(seed, units, c, d, cout, dtype, device):
@@ -430,14 +586,17 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
     x, wmat, wspec, b, _ = _block_case(0, 3, 8, 4, cuda_device)
     ops = _bn_units(1, 2, 16, 8, 16, torch.float32, cuda_device)
     xb = torch.zeros((1, 16, 6, 6), device=cuda_device)
-    fns = (twk.multi_crop, tbk.dense_s2_block, trk.roi_sums, tsk.stem_packed,
-           tbn.bottleneck_s1, tbn.bottleneck_chain)
+    fns = (twk.multi_crop, tbk.dense_s2_block, trk.roi_sums, trk.roi_samples,
+           tsk.stem_packed, tbn.bottleneck_s1, tbn.bottleneck_chain)
     n = [f.launches for f in fns]
     twk.multi_crop(torch.from_numpy(frames).to(cuda_device),
                    torch.from_numpy(rects).to(cuda_device), (8, 8, 8))
     tbk.dense_s2_block(x, wmat, wspec, b, None, cin=3, resid=False)
     trk.roi_sums(torch.from_numpy(fr).to(cuda_device),
                  torch.from_numpy(rois).to(cuda_device))
+    trk.roi_samples(torch.from_numpy(fr).to(cuda_device),
+                    torch.from_numpy(rois).to(cuda_device),
+                    SignalColorChannel.GREEN)
     tsk.stem_packed(x.float(), torch.zeros((3, 3, 3, 8), device=cuda_device),
                     b)
     tbn.bottleneck_s1(xb, xb, *(o[0] for o in ops))
@@ -453,6 +612,9 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
     tbn.bottleneck_chain_plain(xb, *ops)
     tsk.stem_packed_plain(x.float(), torch.zeros((3, 3, 3, 8),
                                                  device=cuda_device), b)
+    trk.roi_samples_plain(torch.from_numpy(fr).to(cuda_device),
+                          torch.from_numpy(rois).to(cuda_device),
+                          SignalColorChannel.GREEN)
     assert [f.launches for f in fns] == [k + 1 for k in n]
 
 
