@@ -424,6 +424,22 @@ def flagship_config(streams: int = 64, h: int = 480, w: int = 640
             fused_trunk=True, fused_bn_min_hw=96, seg_full_masks=True))
 
 
+def preset_config(name: str, streams: int = 64, h: int = 480, w: int = 640
+                  ) -> EngineConfig:
+    """One of the five BASELINE presets at the measured scale: the same
+    config as the JAX ``bench.build_config(name, streams, h, w,
+    on_tpu=True)`` with no environment overrides (the fused crop / stem /
+    trunk kernels on, bf16, all six segmenter masks)."""
+    base = preset_configs()[name]
+    return dataclasses.replace(
+        base, frame_height=h, frame_width=w, num_streams=streams,
+        compute_dtype="bfloat16",
+        inference=dataclasses.replace(
+            base.inference, use_pallas=True, fuse_dw_pw=False, pack_s2d=0,
+            fused_stem=True, fused_trunk=True, fused_bn_min_hw=96,
+            seg_full_masks=True))
+
+
 def preset_configs() -> dict[str, EngineConfig]:
     """The five BASELINE.json benchmark configurations as presets."""
 

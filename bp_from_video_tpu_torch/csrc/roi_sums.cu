@@ -19,7 +19,9 @@
 // semantics (a negative bound wraps by the axis length, then both clamp to
 // [0, size]) and the denominator (the pixel count, or with a weight map
 // [S, H, W] the weight sum, the sums then weighting each pixel).  A ROI row
-// with any non-finite entry is an empty rect.
+// with any non-finite entry is an empty rect.  The weight map's rows are
+// contiguous and its streams `wstride` floats apart, so a channel view of
+// the segmenter's [S, 6, H, W] confidences is read in place.
 //
 // Numerics: unweighted sums accumulate in 32-bit integers (exact; a full
 // 480x640 rect of 255s is 7.8e7 < 2^31) and round to f32 once; the
@@ -33,8 +35,9 @@
 // __fmul_rn(pixel, weight) with __fadd_rn in a fixed order (deterministic),
 // another order than the plain version's two dots.
 //
-// Bound on this card: bytes, three u8 planes (plus a f32 weight) per ROI
-// pixel read once.  In practice launch and round-trip latency: at the
+// Bound on this card: bytes, the u8 planes the output needs (the green
+// plane alone for a GREEN sample, all three for CHROM_GREEN and the sums;
+// the kernel reads no other) plus a f32 weight per ROI pixel, read once.  In practice launch and round-trip latency: at the
 // flagship a ROI is about 56x42 or 40x40 pixels, 5-7 KB of the three
 // planes, and 128 ROIs give one block an SM.  Warps walking the rect's
 // rows with one byte a lane per plane would wait about 11 load round trips
@@ -45,7 +48,7 @@
 //   16-byte aligned weights when weighted) or one byte (the byte route,
 //   any width and alignment; the wrapper picks the route);
 // - a thread takes items t, t + 256, t + 512, t + 768 together and issues
-//   all their loads (3 planes each, and a weight vector) before any add;
+//   all their loads (its planes, and a weight vector) before any add;
 //   the item index is clamped and its mask zeroed past the end, so every
 //   load is unconditional.  At the flagship sizes (at most 630 words a
 //   plane) each thread waits one round trip;
@@ -102,12 +105,15 @@ __device__ __forceinline__ void load_weights(const float* p, float* out) {
   }
 }
 
-template <int VEC, bool WEIGHTED>
+// GREEN_ONLY: the green plane alone is read and summed (the GREEN sample);
+// otherwise all three.
+template <int VEC, bool WEIGHTED, bool GREEN_ONLY>
 __global__ void __launch_bounds__(THREADS)
     roi_kernel(const uint8_t* __restrict__ frames,
                const float* __restrict__ rois,
-               const float* __restrict__ weights, float* __restrict__ out0,
-               float* __restrict__ out1, int nroi, int h, int w, int mode) {
+               const float* __restrict__ weights, long long wstride,
+               float* __restrict__ out0, float* __restrict__ out1, int nroi,
+               int h, int w, int mode) {
   const long long idx = (long long)blockIdx.y * nroi + blockIdx.x;
   bool finite = true;
   float v[6];
@@ -128,10 +134,11 @@ __global__ void __launch_bounds__(THREADS)
   const int wa = x0 / VEC;
   const int nw = nx > 0 ? (x1 - 1) / VEC - wa + 1 : 0;
   const int n = ny * nw;
+  constexpr int C0 = GREEN_ONLY ? 1 : 0, C1 = GREEN_ONLY ? 2 : 3;
 
   const long long plane = (long long)h * w;
   const uint8_t* f = frames + blockIdx.y * 3 * plane;
-  const float* wm = WEIGHTED ? weights + blockIdx.y * plane : nullptr;
+  const float* wm = WEIGHTED ? weights + blockIdx.y * wstride : nullptr;
   unsigned int isum[3] = {0u, 0u, 0u};
   float fsum[4] = {0.f, 0.f, 0.f, 0.f};
   for (int base = threadIdx.x; base < n; base += THREADS * ITEMS) {
@@ -150,7 +157,7 @@ __global__ void __launch_bounds__(THREADS)
       mask[k] = i < n ? (unsigned int)m : 0u;
       const long long o = (long long)(y0 + row) * w + c;
 #pragma unroll
-      for (int ch = 0; ch < 3; ++ch)
+      for (int ch = C0; ch < C1; ++ch)
         px[k][ch] = load_word<VEC>(f + ch * plane + o);
       if (WEIGHTED) load_weights<VEC>(wm + o, wt[k]);
     }
@@ -158,14 +165,14 @@ __global__ void __launch_bounds__(THREADS)
     for (int k = 0; k < ITEMS; ++k) {
       if (!WEIGHTED) {
 #pragma unroll
-        for (int ch = 0; ch < 3; ++ch)
+        for (int ch = C0; ch < C1; ++ch)
           isum[ch] = __dp4a(px[k][ch] & mask[k], 0x01010101u, isum[ch]);
       } else {
 #pragma unroll
         for (int b = 0; b < VEC; ++b) {
           const float wb = (mask[k] >> (8 * b)) & 1u ? wt[k][b] : 0.0f;
 #pragma unroll
-          for (int ch = 0; ch < 3; ++ch) {
+          for (int ch = C0; ch < C1; ++ch) {
             const float p = (float)((px[k][ch] >> (8 * b)) & 0xffu);
             fsum[ch] = __fadd_rn(fsum[ch], __fmul_rn(p, wb));
           }
@@ -181,28 +188,30 @@ __global__ void __launch_bounds__(THREADS)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (WEIGHTED) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = C0; c < C1; ++c) {
       fsum[c] = warp_sum(fsum[c]);
       if (lane == 0) red_f[c][warp] = fsum[c];
     }
+    fsum[3] = warp_sum(fsum[3]);
+    if (lane == 0) red_f[3][warp] = fsum[3];
   } else {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
+    for (int c = C0; c < C1; ++c) {
       isum[c] = warp_sum(isum[c]);
       if (lane == 0) red_u[c][warp] = isum[c];
     }
   }
   __syncthreads();
   if (warp != 0) return;
-  float sum[3], den;
+  float sum[3] = {0.f, 0.f, 0.f}, den;
   if (!WEIGHTED) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
+    for (int c = C0; c < C1; ++c)
       sum[c] = (float)warp_sum(lane < NWARPS ? red_u[c][lane] : 0u);
     den = __fmul_rn((float)ny, (float)nx);
   } else {
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
+    for (int c = C0; c < C1; ++c)
       sum[c] = warp_sum(lane < NWARPS ? red_f[c][lane] : 0.0f);
     den = warp_sum(lane < NWARPS ? red_f[3][lane] : 0.0f);
   }
@@ -228,34 +237,40 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int VEC, bool WEIGHTED>
 static int launch(const void* frames, const void* rois, const void* weights,
-                  void* out0, void* out1, int s, int nroi, int h, int w,
-                  int mode, void* stream) {
+                  long long wstride, void* out0, void* out1, int s, int nroi,
+                  int h, int w, int mode, void* stream) {
   dim3 grid(nroi, s);
-  roi_kernel<VEC, WEIGHTED><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  auto kernel = mode == OUT_GREEN ? roi_kernel<VEC, WEIGHTED, true>
+                                  : roi_kernel<VEC, WEIGHTED, false>;
+  kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)frames, (const float*)rois, (const float*)weights,
-      (float*)out0, (float*)out1, nroi, h, w, mode);
+      wstride, (float*)out0, (float*)out1, nroi, h, w, mode);
   return (int)cudaGetLastError();
 }
 
 static int dispatch(const void* frames, const void* rois, const void* weights,
-                    void* out0, void* out1, int s, int nroi, int h, int w,
-                    int vec, int mode, void* stream) {
+                    long long wstride, void* out0, void* out1, int s,
+                    int nroi, int h, int w, int vec, int mode, void* stream) {
+  if (weights != nullptr && wstride < (long long)h * w)
+    return (int)cudaErrorInvalidValue;
   if (vec == 4) {
     // The word route reads 4-byte words of the frames and 16-byte vectors
-    // of the weights: refuse what is not aligned for them.
+    // of the weights, every stream's included: refuse what is not aligned
+    // for them.
     if (w % 4 != 0 || (uintptr_t)frames % 4 != 0 ||
-        (weights != nullptr && (uintptr_t)weights % 16 != 0))
+        (weights != nullptr &&
+         ((uintptr_t)weights % 16 != 0 || wstride % 4 != 0)))
       return (int)cudaErrorInvalidValue;
-    return weights ? launch<4, true>(frames, rois, weights, out0, out1, s,
-                                     nroi, h, w, mode, stream)
-                   : launch<4, false>(frames, rois, weights, out0, out1, s,
-                                      nroi, h, w, mode, stream);
+    return weights ? launch<4, true>(frames, rois, weights, wstride, out0,
+                                     out1, s, nroi, h, w, mode, stream)
+                   : launch<4, false>(frames, rois, weights, wstride, out0,
+                                      out1, s, nroi, h, w, mode, stream);
   }
   if (vec != 1) return (int)cudaErrorInvalidValue;
-  return weights ? launch<1, true>(frames, rois, weights, out0, out1, s, nroi,
-                                   h, w, mode, stream)
-                 : launch<1, false>(frames, rois, weights, out0, out1, s,
-                                    nroi, h, w, mode, stream);
+  return weights ? launch<1, true>(frames, rois, weights, wstride, out0, out1,
+                                   s, nroi, h, w, mode, stream)
+                 : launch<1, false>(frames, rois, weights, wstride, out0,
+                                    out1, s, nroi, h, w, mode, stream);
 }
 
 extern "C" {
@@ -264,25 +279,27 @@ const char* kernel_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// frames u8 [S, 3, H, W]; rois f32 [S, R, 6]; weights f32 [S, H, W] or
-// null; sums f32 [S, R, 3]; denoms f32 [S, R].  vec: 4 (word route) or 1
-// (byte route).
+// frames u8 [S, 3, H, W]; rois f32 [S, R, 6]; weights f32 [S, H, W] with
+// contiguous rows and streams wstride >= H * W floats apart, or null; sums
+// f32 [S, R, 3]; denoms f32 [S, R].  vec: 4 (word route) or 1 (byte
+// route).
 int roi_sums_launch(const void* frames, const void* rois, const void* weights,
-                    void* sums, void* denoms, int s, int nroi, int h, int w,
-                    int vec, void* stream) {
-  return dispatch(frames, rois, weights, sums, denoms, s, nroi, h, w, vec,
-                  OUT_SUMS, stream);
+                    long long wstride, void* sums, void* denoms, int s,
+                    int nroi, int h, int w, int vec, void* stream) {
+  return dispatch(frames, rois, weights, wstride, sums, denoms, s, nroi, h, w,
+                  vec, OUT_SUMS, stream);
 }
 
 // As roi_sums_launch, writing samples f32 [S, R]; channel 1 = GREEN,
 // 2 = CHROM_GREEN.
 int roi_samples_launch(const void* frames, const void* rois,
-                       const void* weights, void* samples, int s, int nroi,
-                       int h, int w, int vec, int channel, void* stream) {
+                       const void* weights, long long wstride, void* samples,
+                       int s, int nroi, int h, int w, int vec, int channel,
+                       void* stream) {
   if (channel != OUT_GREEN && channel != OUT_CHROM_GREEN)
     return (int)cudaErrorInvalidValue;
-  return dispatch(frames, rois, weights, samples, nullptr, s, nroi, h, w, vec,
-                  channel, stream);
+  return dispatch(frames, rois, weights, wstride, samples, nullptr, s, nroi,
+                  h, w, vec, channel, stream);
 }
 
 }  // extern "C"

@@ -5,7 +5,10 @@ Counterpart of ``bp_from_video_tpu/pallas/roi_kernel.py`` ``roi_sums``:
 integral ROIs (x, y, x0, y0, x1, y1) with Python slice semantics (negative
 bounds wrap, then clamp), sums of the three channel planes over
 frame[y0:y1, x0:x1], and the denominator (pixel count, or with a weight map
-the weight sum, the sums then weighting each pixel).
+the weight sum, the sums then weighting each pixel).  A weight map with
+contiguous rows is read in place, whatever its stream stride
+(``weights_in_place``): the segmenter's skin channel, a view of its
+[S, 6, H, W] confidences, costs no copy.
 
 Two entries launch the one kernel: ``roi_sums`` returns the sums and
 denominators; ``roi_samples`` also does in the same launch what
@@ -92,12 +95,45 @@ def roi_samples_plain(frames_planar: Tensor, rois: Tensor,
     return torch.where(valid, mix_channel(means, channel), _NAN)
 
 
-def word_route(frames_planar: Tensor, weights: Tensor | None = None) -> bool:
+def weights_in_place(weights: Tensor) -> bool:
+    """True when the kernel reads a weight map [S, H, W] as it lies: f32
+    with contiguous rows, its streams any whole number of maps apart (a
+    channel view of the segmenter's [S, 6, H, W] confidences is one)."""
+    s, h, w = weights.shape
+    return (weights.dtype == torch.float32 and weights.stride(2) == 1
+            and weights.stride(1) == w
+            and (s == 1 or weights.stride(0) >= h * w))
+
+
+def _wstride(weights: Tensor) -> int:
+    """A weight map's stream stride in floats, as the C entry takes it."""
+    s, h, w = weights.shape
+    return weights.stride(0) if s > 1 else h * w
+
+
+def _weights_operand(weights: Tensor | None) -> tuple[Tensor | None, int]:
+    """The weight map as the kernel reads it and its stream stride in
+    floats; a copy only when it cannot be read in place."""
+    if weights is None:
+        return None, 0
+    if not weights_in_place(weights):
+        weights = weights.to(torch.float32).contiguous()
+    return weights, _wstride(weights)
+
+
+def word_route(frames_planar: Tensor, weights: Tensor | None = None,
+               wstride: int | None = None) -> bool:
     """True when the kernel may read the frames in 4-byte words: the width
-    a multiple of 4, the frames 4-byte and the weights 16-byte aligned."""
+    a multiple of 4, the frames 4-byte aligned, and the weight map of every
+    stream 16-byte aligned.  ``weights`` is the map as the kernel reads it
+    (one that ``weights_in_place`` accepts), ``wstride`` its stream stride
+    in floats (by default the view's)."""
+    if weights is not None and wstride is None:
+        wstride = _wstride(weights)
     return (frames_planar.shape[-1] % 4 == 0
             and frames_planar.data_ptr() % 4 == 0
-            and (weights is None or weights.data_ptr() % 16 == 0))
+            and (weights is None or (weights.data_ptr() % 16 == 0
+                                     and wstride % 4 == 0)))
 
 
 def _check(what: str, frames_planar: Tensor, rois: Tensor,
@@ -128,17 +164,17 @@ def _launch(entry: str, frames_planar: Tensor, rois: Tensor,
     s, _, h, w = frames_planar.shape
     frames_planar = frames_planar.contiguous()
     rois = rois.contiguous()
-    wts = (None if weights is None
-           else weights.to(torch.float32).contiguous())
+    wts, wstride = _weights_operand(weights)
     lib = build.load("roi_sums")
     fn = getattr(lib, entry + "_launch")
-    fn.argtypes = ([ctypes.c_void_p] * (3 + len(outs))
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] * len(outs)
                    + [ctypes.c_int] * (5 + len(extra)) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = fn(frames_planar.data_ptr(), rois.data_ptr(),
-             None if wts is None else wts.data_ptr(),
+             None if wts is None else wts.data_ptr(), wstride,
              *(o.data_ptr() for o in outs), s, rois.shape[1], h, w,
-             4 if word_route(frames_planar, wts) else 1, *extra,
+             4 if word_route(frames_planar, wts, wstride) else 1, *extra,
              torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, entry)
 
@@ -183,8 +219,11 @@ def roi_samples(frames_planar: Tensor, rois: Tensor,
     _launch("roi_samples", frames_planar, rois, weights, (out,),
             _CHANNELS[channel])
     roi_samples.launches += 1
+    roi_samples.weighted_launches += weights is not None
     return out
 
 
 roi_sums.launches = 0
 roi_samples.launches = 0
+# Of those, the launches with a weight map (the segmenter's skin weights).
+roi_samples.weighted_launches = 0

@@ -1,4 +1,4 @@
-"""BlazePalm/BlazeFace detector and landmark-net stand-ins — the
+"""BlazePalm/BlazeFace detector, landmark-net and segmenter stand-ins — the
 counterpart of ``bp_from_video_tpu/models/blaze.py``.
 
 Parameters are nested dicts of arrays in the reference package's layouts
@@ -7,8 +7,7 @@ so one seed gives identical weights in both packages.  Activations are
 planar [N, C, H, W] and every function takes the batch as its leading
 axis.  The packed-stem twin (``stem_p``) feeds only the reference
 package's ``pack_s2d`` path and is not built here; it draws no random
-numbers, so skipping it leaves every other draw identical.  The segmenter
-stand-in is not ported yet (ROADMAP Queue 1 item 10).
+numbers, so skipping it leaves every other draw identical.
 """
 
 from __future__ import annotations
@@ -16,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from bp_from_video_tpu_torch.models import warp
 
 Tensor = torch.Tensor
 
@@ -176,6 +177,48 @@ def landmark_heads(p: dict, y: Tensor, input_size: int
     presence = torch.sigmoid(_conv(p["head_presence"], pooled).reshape(b, 1))
     aux = torch.sigmoid(_conv(p["head_aux"], pooled).reshape(b, 1))
     return lm, presence, aux
+
+
+def init_segmenter(seed: int, input_size: int, num_classes: int = 6) -> dict:
+    """Encoder/decoder segmenter stand-in sized to the selfie_multiclass
+    model's compute class (draw order as in the reference)."""
+    rng = np.random.default_rng(seed)
+    return {
+        "stem": _conv_init(rng, 3, 3, 3, 16),
+        "b1": _blaze_block_init(rng, 16, 32),
+        "b2": _blaze_block_init(rng, 32, 64),
+        "b3": _blaze_block_init(rng, 64, 64),
+        "up1": _conv_init(rng, 3, 3, 64, 24),
+        "up2": _conv_init(rng, 3, 3, 24, 12),
+        "head": _conv_init(rng, 1, 1, 12, num_classes),
+    }
+
+
+def segmenter_features(p: dict, x: Tensor, input_size: int) -> Tensor:
+    """Encoder and decoder up to the /2 feature map: planar [B, 3, S, S]
+    -> [B, 12, S/2, S/2], everything but the class head and the last
+    upsample."""
+    s = input_size
+    y = torch.relu(_conv(p["stem"], x, stride=2))    # /2
+    y = _blaze_block(p["b1"], y, stride=2)           # /4
+    y = _blaze_block(p["b2"], y, stride=2)           # /8
+    y = _blaze_block(p["b3"], y)
+    y = warp.resize_bilinear_planar(y, s // 4, s // 4)
+    y = torch.relu(_conv(p["up1"], y))
+    y = warp.resize_bilinear_planar(y, s // 2, s // 2)
+    return torch.relu(_conv(p["up2"], y))
+
+
+def segmenter_apply(p: dict, x: Tensor, input_size: int) -> Tensor:
+    """Planar [B, 3, S, S] -> softmaxed class confidences [B, C, S, S],
+    planar.  The 1x1 class head runs at /2, before the last bilinear
+    upsample: a 1x1 conv commutes with bilinear interpolation (both linear,
+    the interpolation weights of a pixel sum to 1), so the upsample moves
+    C channels instead of 12."""
+    s = input_size
+    y = _conv(p["head"], segmenter_features(p, x, s))
+    y = warp.resize_bilinear_planar(y, s, s)
+    return torch.softmax(y, dim=1)
 
 
 def load_standin_npz(path: str, return_meta: bool = False):

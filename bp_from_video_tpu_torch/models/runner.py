@@ -1,8 +1,9 @@
 """The batched inference runner — the counterpart of
 ``bp_from_video_tpu/models/runner.py``: face landmarker (face detector +
-landmark net) and hand landmarker (palm detector + per-hand landmark net)
-in VIDEO detect-then-track mode (or IMAGE mode: detect every frame) over a
-stream batch, with the tracking state carried explicitly.
+landmark net), hand landmarker (palm detector + per-hand landmark net) in
+VIDEO detect-then-track mode (or IMAGE mode: detect every frame), and the
+person segmenter, over a stream batch, with the tracking state carried
+explicitly.
 
 Main path (``use_pallas``, ``fused_stem``, ``fused_trunk``, uint8 frames,
 cover rotation): one K1 launch crops every landmark crop of every stream
@@ -23,9 +24,15 @@ machines without TensorFlow.  A compiled graph is always compiled
 ``batch_flexible``: the reference maps a batch-1 graph over the crops, the
 port feeds the batch.
 
-Not ported yet (they raise ``NotImplementedError``): compiled detectors,
-the standalone face detector, the segmenter, the rotated crop modes,
-``pack_s2d`` and ``fuse_dw_pw`` (ROADMAP Queue 1 item 10).
+The segmenter (the stand-in, trained or seeded) runs on every frame
+resized to its input, planar end to end: six class confidences and their
+argmax at frame resolution (``seg_full_masks``), or the skin channel alone
+at frame resolution with the class map at model resolution.
+
+Not ported yet (they raise ``NotImplementedError`` naming their ROADMAP
+Queue 1 item): the standalone face detector (10b), the rotated crop modes
+(10c), compiled detectors and a compiled segmenter, ``pack_s2d`` and
+``fuse_dw_pw`` (10e).
 """
 
 from __future__ import annotations
@@ -58,6 +65,9 @@ NUM_HAND_LANDMARKS = 21
 NUM_FACE_DET_KPS = 6
 NUM_PALM_KPS = 7
 MAX_FACE_DETS = 4
+SEG_CLASSES = 6
+# The selfie-multiclass class the live pipeline consumes: face skin.
+SEG_SKIN_CLASS = 3
 PRESENCE_THRESHOLD = 0.5
 # Tracking-rect anchor landmarks: face = outer eye corners, hand = wrist ->
 # middle-finger MCP.
@@ -107,6 +117,18 @@ def _associate_hand_dets(tracking: Tensor, t_rects: Tensor,
     rects = torch.where(tracking[..., None], t_rects,
                         torch.where(got[..., None], new_rect, float("nan")))
     return rects, tracking | got
+
+
+def skin_confidence(seg_conf: Tensor) -> Tensor:
+    """The face-skin confidence from ``seg_conf`` in either layout:
+    [..., 6, H, W] (``seg_full_masks``) or [..., 1, H, W] (skin only).  A
+    view, not a copy: with the full masks its stream stride is 6 H W.  Any
+    other channel count raises."""
+    c = seg_conf.shape[-3]
+    if c not in (1, SEG_CLASSES):
+        raise ValueError(f"seg_conf has {c} channels; expected 1 "
+                         f"(skin-only) or {SEG_CLASSES} (full masks)")
+    return seg_conf[..., min(SEG_SKIN_CLASS, c - 1), :, :]
 
 
 class TrackState(NamedTuple):
@@ -181,18 +203,17 @@ class InferenceRunner:
         self.h, self.w = frame_height, frame_width
         self.dtype = dtype
         self.device = resolve_device(device)
-        if cfg.face_detector or cfg.person_segmenter:
+        if cfg.face_detector:
             raise NotImplementedError(
-                "face detector / person segmenter: not ported yet (ROADMAP "
-                "Queue 1 item 10)")
+                "face detector: not ported yet (ROADMAP Queue 1 item 10b)")
         if cfg.resolved_rotation_mode() != "cover":
             raise NotImplementedError(
                 f"rotation_mode {cfg.resolved_rotation_mode()!r}: not ported "
-                "yet (ROADMAP Queue 1 item 10)")
+                "yet (ROADMAP Queue 1 item 10c)")
         if cfg.pack_s2d or cfg.fuse_dw_pw:
             raise NotImplementedError(
                 "pack_s2d (the packed stem twin, space_to_depth_pack) and "
-                "fuse_dw_pw: not ported (ROADMAP Queue 1 item 10)")
+                "fuse_dw_pw: not ported (ROADMAP Queue 1 item 10e)")
         self.params: dict[str, Any] = {}
         self.sizes: dict[str, int] = {}
         self._trunk_specs: dict[str, tuple] = {}
@@ -247,6 +268,11 @@ class InferenceRunner:
             self._load_landmark("hand_lm", graphs.pop("hand_lm", lm), 224,
                                 NUM_HAND_LANDMARKS,
                                 resolve(cfg.hand_lm_standin_path))
+        if cfg.person_segmenter:
+            path = resolve(cfg.person_segmenter_path)
+            self._load_segmenter(
+                "seg", tc.load_tflite_file(path) if path else None, 256,
+                resolve(cfg.seg_standin_path))
         if graphs:
             raise ValueError(f"graphs for models not enabled: "
                              f"{sorted(graphs)}")
@@ -290,7 +316,7 @@ class InferenceRunner:
         if blob is not None:
             raise NotImplementedError(
                 f"model {key!r}: compiled TFLite detectors are not ported "
-                "yet (ROADMAP Queue 1 item 10)")
+                "yet (ROADMAP Queue 1 item 10e)")
         box_dim = 4 + 2 * num_kps
         params = self._load_trained_standin(
             key, standin_path,
@@ -303,6 +329,46 @@ class InferenceRunner:
                                                num_kps)
         self.params[key] = _to_torch(params, self.device, self.dtype)
         self.sizes[key] = size
+
+    def _load_segmenter(self, key, blob, size, standin_path=None):
+        """The segmenter stand-in: the trained npz when it matches, else a
+        seeded init."""
+        if blob is not None:
+            raise NotImplementedError(
+                f"model {key!r}: a compiled TFLite segmenter is not ported "
+                "yet (ROADMAP Queue 1 item 10e)")
+        params = self._load_trained_standin(
+            key, standin_path, {("head", "w"): (1, 1, 12, SEG_CLASSES)},
+            {"input_size": size, "classes": SEG_CLASSES})
+        if params is None:
+            logger.warning("model %r: using a RANDOM-INIT stand-in", key)
+            params = blaze.init_segmenter(_seed(key), size, SEG_CLASSES)
+        self.params[key] = _to_torch(params, self.device, self.dtype)
+        self.sizes[key] = size
+
+    def _segment(self, params, frames_planar: Tensor
+                 ) -> tuple[Tensor, Tensor]:
+        """Segmenter over planar frames [S, 3, H, W] -> (class map int32,
+        confidences f32): [S, H, W] and [S, 6, H, W] with the full masks,
+        else [S, size, size] and the skin channel [S, 1, H, W]."""
+        size = self.sizes["seg"]
+        # A tensor divisor: IEEE quotients on the card as on the CPU.
+        d255 = torch.full((), 255.0, dtype=torch.float32,
+                          device=frames_planar.device)
+        small = warp.resize_bilinear_planar(
+            frames_planar.to(self.dtype), size, size, dtype=self.dtype,
+            out_dtype=torch.float32) / d255
+        conf = blaze.segmenter_apply(params, small.to(self.dtype), size)
+        if self.cfg.seg_full_masks:
+            full = warp.resize_bilinear_planar(
+                conf, self.h, self.w, dtype=torch.bfloat16,
+                out_dtype=torch.float32)
+            return full.argmax(1).to(torch.int32), full
+        sk = SEG_SKIN_CLASS
+        skin = warp.resize_bilinear_planar(
+            conf[:, sk:sk + 1], self.h, self.w, dtype=torch.bfloat16,
+            out_dtype=torch.float32)
+        return conf.argmax(1).to(torch.int32), skin
 
     def _load_landmark(self, key, graph, size, num_landmarks,
                        standin_path=None):
@@ -791,6 +857,13 @@ class InferenceRunner:
                 points=torch.where(pres_s[..., None, None], pts_s,
                                    float("nan")),
                 count=present.sum(-1).to(torch.int32)))
+
+        if self.cfg.person_segmenter:
+            planar = frames_rgb if planar_in else frames_rgb.permute(0, 3, 1,
+                                                                     2)
+            seg_class, seg_conf = self._segment(params["seg"], planar)
+            res = res._replace(seg_class=seg_class, seg_conf=seg_conf,
+                               seg_valid=torch.ones_like(res.seg_valid))
 
         new_state = TrackState(new_face_rect, new_face_tracking,
                                new_hand_rects, new_hand_tracking,

@@ -92,6 +92,19 @@ def _take(a: Tensor, idx: Tensor) -> Tensor:
     return torch.gather(a, -1, idx.expand(a.shape[:-1] + idx.shape[-1:]))
 
 
+def _shifted(a: Tensor, left_pad: int, right_pad: int, start: Tensor,
+             out_len: int) -> Tensor:
+    """``out[..., i] = a[..., start + i]`` with ``start`` [...] possibly
+    negative: a window of ``a`` zero-padded by ``left_pad`` and
+    ``right_pad``, its start clamped to keep the window inside the padded
+    buffer (``jax.lax.dynamic_slice`` semantics)."""
+    z = a.new_zeros(a.shape[:-1] + (left_pad,))
+    buf = torch.cat([z, a, a.new_zeros(a.shape[:-1] + (right_pad,))], -1)
+    s0 = torch.clamp(left_pad + start, 0, buf.shape[-1] - out_len)
+    idx = s0[..., None] + torch.arange(out_len, device=a.device)
+    return torch.gather(buf, -1, idx)
+
+
 def odd_ext(yc: Tensor, count: Tensor, padlen: Tensor, ext_cap: int
             ) -> Tensor:
     """Odd extension of the first ``count`` entries of ``yc`` by

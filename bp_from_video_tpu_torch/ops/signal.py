@@ -169,6 +169,67 @@ def scatter_back(mask: Tensor, compacted: Tensor, original: Tensor
     return torch.where(mask, aligned, original)
 
 
+def arange_mask(n: int, count: Tensor) -> Tensor:
+    """[..., n] mask of the first ``count`` [...] slots of each row."""
+    return torch.arange(n, device=count.device) < count[..., None]
+
+
+class Selection(NamedTuple):
+    """A matrix with at most one True per row, kept as indices: row q picks
+    column ``idx[..., q]`` where ``has[..., q]``, and nothing elsewhere."""
+
+    idx: Tensor   # [..., Q] int64
+    has: Tensor   # [..., Q] bool
+
+
+def select_rows(m: Tensor) -> Selection:
+    """The first True column of each row of a bool matrix [..., Q, n]."""
+    n = m.shape[-1]
+    col = torch.arange(n, device=m.device)
+    first = torch.where(m, col, n).amin(-1)
+    return Selection(first.clamp(max=n - 1), first < n)
+
+
+def bracket_matrix(cxv: Tensor, count: Tensor, queries: Tensor
+                   ) -> tuple[Tensor, Tensor, Tensor]:
+    """Segment brackets over a compacted sorted last axis: ``m[..., q, i]``
+    is True iff ``cxv[i] <= queries[q] < cxv[i+1]`` with ``i < count - 1``
+    (``searchsorted(side='right') - 1`` for in-range queries).  cxv:
+    [..., n], count: [...], queries: [..., Q].
+
+    Returns ``(m bool [..., Q, n], x0s, x1s)``: the segment endpoints with
+    ``inf`` beyond ``count`` (zero them with :func:`zero_infs` before
+    selecting from them).  :func:`select_rows` turns ``m`` into indices."""
+    n = cxv.shape[-1]
+    inf = torch.full((), float("inf"), dtype=cxv.dtype, device=cxv.device)
+    x0s = torch.where(arange_mask(n, count), cxv, inf)
+    x1s = torch.cat([x0s[..., 1:], inf.expand(x0s.shape[:-1] + (1,))], -1)
+    seg_ok = arange_mask(n, torch.clamp(count - 1, min=0))
+    q = queries[..., :, None]
+    m = (seg_ok[..., None, :] & (x0s[..., None, :] <= q)
+         & (q < x1s[..., None, :]))
+    return m, x0s, x1s
+
+
+def zero_infs(v: Tensor) -> Tensor:
+    """Non-finite sentinels -> 0 before a selection."""
+    return torch.where(torch.isfinite(v), v, 0.0)
+
+
+def selmm(m: Selection, v: Tensor) -> Tensor:
+    """What the product ``m @ v`` of a one-hot matrix gives: ``v[..., idx]``
+    on rows that have their one, 0 on the rest, and NaN throughout where
+    ``v`` holds a non-finite value (a product sums 0 * it).  A gather, not
+    a float product, so the values are the selected ones exactly whatever
+    matmul precision is in force (a TF32 product would round timestamps,
+    which are seconds since start, to worse than a frame)."""
+    got = torch.gather(v, -1, m.idx)
+    out = torch.where(m.has, got, torch.zeros((), dtype=v.dtype,
+                                               device=v.device))
+    bad = ~torch.isfinite(v).all(-1, keepdim=True)
+    return torch.where(bad, float("nan"), out)
+
+
 def take_at(values: Tensor, i: int, count: Tensor) -> Tensor:
     """``values[..., i]`` with negative-from-count semantics (``i=-1`` is
     the last valid entry); out-of-range indices wrap once then clamp, like

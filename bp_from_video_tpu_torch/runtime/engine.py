@@ -4,7 +4,8 @@
     batch_step(params, state, frames, timestamps) -> (state, StepOutputs)
 
 runs inference (detect-then-track), ROI geometry, ROI sampling (kernel K4),
-the ring pushes, the DSP chain, Lomb-Scargle spectra, BPM peaks,
+the ring pushes, the DSP chain, spectra (Lomb-Scargle, Welch or rFFT), BPM
+peaks,
 face-to-palm correlation and PTT peaks for a batch of streams.  Every
 state and output field carries a leading stream axis [S]; rings keep time
 on their last axis (the ROI ring on its second-to-last, before the 6-tuple).
@@ -21,7 +22,8 @@ from bp_from_video_tpu_torch import resolve_device
 from bp_from_video_tpu_torch.config import EngineConfig, ModelType
 from bp_from_video_tpu_torch.models.runner import (InferenceRunner,
                                                    ModelResults, TrackState,
-                                                   map_leaves)
+                                                   map_leaves,
+                                                   skin_confidence)
 from bp_from_video_tpu_torch.ops import chain, correlate, spectrum
 from bp_from_video_tpu_torch.ops import roi as roi_ops
 from bp_from_video_tpu_torch.ops import signal as sig
@@ -138,11 +140,15 @@ class Engine:
                     frames_rgb: Tensor, timestamps: Tensor
                     ) -> tuple[SignalState, StepOutputs]:
         """The DSP half of the step, taking inference results as input: ROI
-        geometry and ring, pixel sampling (kernel K4 with ``use_pallas``),
-        then :meth:`signal_post`."""
+        geometry and ring, pixel sampling (kernel K4 with ``use_pallas``;
+        weighted by the segmenter's skin confidence when the segmenter
+        runs), then :meth:`signal_post`."""
         roi_x, roi_y, rois = self.roi_stage(st, models, timestamps)
+        weights = None
+        if self.config.inference.person_segmenter:
+            weights = skin_confidence(models.seg_conf)
         samples = roi_ops.sample_rois_batch(
-            frames_rgb, rois, self.config.signal.color_channel, None,
+            frames_rgb, rois, self.config.signal.color_channel, weights,
             use_pallas=self.config.inference.use_pallas)
         return self.signal_post(st, roi_x, roi_y, rois, models, samples,
                                 timestamps)

@@ -10,7 +10,8 @@ Phases (each fatal on failure):
    card at the flagship shapes (64 streams of 480x640, bf16; K3 at its 11
    launch shapes; K5/K6 at all seven face-mesh stage shapes; both SASS
    checked for tensor-core HMMA instructions; K4 through both its entries,
-   at the flagship ROI sizes), and time the kernel, the plain version and a
+   at the flagship ROI sizes, also weighted by the segmenter's skin view
+   read in place), and time the kernel, the plain version and a
    PyTorch yardstick with CUDA events;
 3. run the flagship ``Engine.batch_step`` (``flagship_config()``) over a
    synthetic pulsing clip long enough to fill the 250-sample ring, with the
@@ -21,15 +22,23 @@ Phases (each fatal on failure):
    (both stems through K2), then a few steps with every stage fused
    (``fused_bn_min_hw=0``: 7 K6 launches); (3d) a mesh graph whose first
    stage has one unit, which compiles to a lone fused unit (K5), against
-   the same graph compiled unfused;
+   the same graph compiled unfused; (3e) the ``butter_welch_face`` preset
+   (``preset_config``: face net alone, eyebrow ROI, Butterworth then
+   Welch) and (3f) the ``segmenter_fir`` preset (the trained segmenter
+   stand-in, K4 weighted by its skin confidence, cubic interpolation,
+   linear detrend, least-squares FIR, Lomb-Scargle), both at 64 streams of
+   480x640 bf16, 3e on the same clip, 3f on one whose frames are person
+   scenes (``person_scene``) pulsing the same way, so that the segmenter
+   finds skin in every forehead ROI;
 4. run a small f32 config on the card and on the CPU (plain versions) over
-   the same clip, with stand-ins and with a compiled face graph: BPM equal,
-   PTT within one sample period.
+   the same clips, with stand-ins, with a compiled face graph and with
+   both presets: BPM equal, PTT within one sample period; the FIR taps
+   designed on the card beside those designed on the CPU.
 
 Prints the card's name and power limit first, one JSON line with every
 kernel's numbers before the last line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
-``--profile DIR`` also traces a few flagship steps of phases 3 and 3b with
+``--profile DIR`` also traces a few steps of phases 3, 3b, 3e and 3f with
 ``torch.profiler`` (kernel time by name, device busy share) and writes the
 traces to DIR.
 """
@@ -55,6 +64,9 @@ F32_FLOPS = 67e12
 BF16_ULP = 2.0 ** -7          # relative spacing of bf16 values (8-bit mantissa)
 # Engine steps per run: enough to fill the 250-sample signal ring.
 STEPS = 260
+# The BASELINE presets this port runs end to end on the card (phases 3e,
+# 3f and 4).
+PRESETS = ("butter_welch_face", "segmenter_fir")
 
 
 def log(*a):
@@ -130,15 +142,58 @@ def fp32_floor_ms(n_instr: float) -> float:
 # -- synthetic clip and template heads ------------------------------------------
 
 
+def person_scene(s: int, h: int, w: int, gen, device) -> torch.Tensor:
+    """f32 [S, 3, H, W] in 0..255: a frontal upper-body scene of the kind
+    the segmenter stand-in was trained on (``tools/train_seg_standin.py``
+    ``render_person``), one a stream: a skin face ellipse on the face box
+    that ``tracked_state`` locks on, hair behind it, a neck and clothes
+    below, over a grey background with a vertical ramp and static noise;
+    skin, hair and clothes colours, background level and shading period
+    drawn per stream.  The face ellipse, seen by the segmenter at 256x256,
+    is as large as the largest in its training (half-widths 0.2 and 0.29
+    of the frame), so the forehead ROI lies well inside it."""
+    k = h / 96.0
+
+    def u(lo, hi, c=1):                     # [S, c, 1, 1]
+        return lo + (hi - lo) * torch.rand((s, c, 1, 1), generator=gen,
+                                           device=device)
+    yf = torch.arange(h, device=device, dtype=torch.float32)[:, None]
+    xf = torch.arange(w, device=device, dtype=torch.float32)[None, :]
+    cx, cy, rx, ry = 64 * k, 36 * k, 25 * k, 27 * k
+
+    def ellipse(x0, y0, ax, ay):
+        return ((xf - x0) / ax) ** 2 + ((yf - y0) / ay) ** 2 <= 1.0
+    face = ellipse(cx, cy, rx, ry)
+    hair = ellipse(cx, cy - 0.30 * ry, 1.22 * rx, 1.12 * ry)
+    neck = ((xf - cx).abs() < 0.45 * rx) & (yf > cy) & (yf < cy + 1.9 * ry)
+    torso = ellipse(cx, cy + 2.6 * ry, 2.6 * rx, 2.1 * ry)
+    skin = (torch.tensor([205.0, 170.0, 140.0], device=device)[:, None, None]
+            + u(-40.0, 40.0, 3))
+    img = (u(40.0, 200.0) + 0.15 * yf / h * 60.0
+           + torch.randn((s, 1, h, w), generator=gen, device=device) * 6.0)
+    img = img.expand(s, 3, h, w)
+    shade = 1.0 + 0.12 * torch.sin(yf / u(25.0, 70.0))
+    for mask, col in ((torso, u(30.0, 220.0, 3)), (neck, skin),
+                      (hair, u(20.0, 90.0, 3)), (face, skin)):
+        img = torch.where(mask, col * shade, img)
+    return img + torch.randn((s, 3, h, w), generator=gen,
+                             device=device) * 3.0
+
+
 def pulse_clip(steps: int, s: int, h: int, w: int, split: int, seed: int,
-               device, hz: float = 1.2, delay_frames: int = 3) -> torch.Tensor:
+               device, hz: float = 1.2, delay_frames: int = 3,
+               person: bool = False) -> torch.Tensor:
     """uint8 [steps, S, 3, H, W] made on ``device`` from a seeded generator:
-    8x8-block texture whose green channel pulses at ``hz`` (rows < split in
-    phase, rows >= split ``delay_frames`` later), plus pixel noise."""
+    8x8-block texture (with ``person``, a ``person_scene``) whose green
+    channel pulses at ``hz`` (rows < split in phase, rows >= split
+    ``delay_frames`` later), plus pixel noise."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    base = torch.randint(60, 180, (s, 3, h // 8, w // 8), generator=gen,
-                         device=device).to(torch.float32)
-    base = base.repeat_interleave(8, 2).repeat_interleave(8, 3)
+    if person:
+        base = person_scene(s, h, w, gen, device)
+    else:
+        base = torch.randint(60, 180, (s, 3, h // 8, w // 8), generator=gen,
+                             device=device).to(torch.float32)
+        base = base.repeat_interleave(8, 2).repeat_interleave(8, 3)
     rows = torch.arange(h, device=device)[:, None]
     out = torch.empty((steps, s, 3, h, w), dtype=torch.uint8, device=device)
     for i in range(steps):
@@ -505,32 +560,47 @@ def check_roi(gen, dev, s: int = 64):
     lost[5, 0] = float("nan")                       # a lost face
     lost[6, 1, 0] = float("nan")                    # one non-finite entry
     lost[7, 1, 4] = float("inf")
+    def hold_samples(tag, rr, ch, wt):
+        got = rk.roi_samples(frames, rr, ch, wt)
+        want = rk.roi_samples_plain(frames, rr, ch, wt)
+        sums, terms = _roi_terms(frames, rr, wt, ch)
+        torch.cuda.synchronize()
+        # Bit-equal below 2^24 unweighted; past it, and weighted, each mean
+        # to the sums' rtol.
+        rtol = (torch.where(sums.amax(-1) >= 2 ** 24, 1e-6, 0.0)
+                if wt is None else 1e-5)
+        nan = torch.isnan(want)
+        d = (got.masked_fill(nan, 0) - want.masked_fill(nan, 0)).abs()
+        ok = (torch.equal(torch.isnan(got), nan)
+              and bool((d <= rtol * terms.masked_fill(nan, 0)).all()))
+        log(f"K4 roi_samples {tag}: max_abs_err {float(d.max()):.3g}, NaN "
+            f"rows {int(nan.sum())} (bit-equal below 2^24 unweighted; rtol "
+            f"of the mixed means past it 1e-6, weighted 1e-5)")
+        if not ok:
+            fail(f"roi_samples ({tag}) disagrees with its plain version")
+        out[f"roi_samples {tag}"] = float(d.max())
+
     for name, rr in (("flagship ROIs with lost rows", lost),
                      ("random rects", rois)):
         for wt in (None, weights):
             for ch in SignalColorChannel:
-                got = rk.roi_samples(frames, rr, ch, wt)
-                want = rk.roi_samples_plain(frames, rr, ch, wt)
-                sums, terms = _roi_terms(frames, rr, wt, ch)
-                torch.cuda.synchronize()
-                # Bit-equal below 2^24 unweighted; past it, and weighted,
-                # each mean to the sums' rtol.
-                rtol = (torch.where(sums.amax(-1) >= 2 ** 24, 1e-6, 0.0)
-                        if wt is None else 1e-5)
-                nan = torch.isnan(want)
-                d = (got.masked_fill(nan, 0) - want.masked_fill(nan, 0)).abs()
-                ok = (torch.equal(torch.isnan(got), nan)
-                      and bool((d <= rtol * terms.masked_fill(nan, 0)).all()))
-                tag = (f"{name}, {ch.name}, "
-                       f"{'weighted' if wt is not None else 'unweighted'}")
-                log(f"K4 roi_samples {tag}: max_abs_err {float(d.max()):.3g}"
-                    f", NaN rows {int(nan.sum())} (bit-equal below 2^24 "
-                    f"unweighted; rtol of the mixed means past it 1e-6, "
-                    f"weighted 1e-5)")
-                if not ok:
-                    fail(f"roi_samples ({tag}) disagrees with its plain "
-                         "version")
-                out[f"roi_samples {tag}"] = float(d.max())
+                hold_samples(f"{name}, {ch.name}, "
+                             f"{'weighted' if wt is not None else 'unweighted'}",
+                             rr, ch, wt)
+    # The segmenter's skin view exactly as the engine passes it
+    # (``skin_confidence`` of the full-mask confidences [S, 6, H, W]): a
+    # channel view with stream stride 6 H W, read in place on the word
+    # route, at the flagship ROI sizes.
+    from bp_from_video_tpu_torch.models.runner import skin_confidence
+    conf = torch.softmax(torch.randn((s, 6, h, w), generator=gen,
+                                     device=dev), 1)
+    skin = skin_confidence(conf)
+    if not (rk.weights_in_place(skin) and rk.word_route(frames, skin)):
+        fail("roi_samples: the skin view would be copied or take the byte "
+             "route")
+    for ch in SignalColorChannel:
+        hold_samples(f"flagship ROIs with lost rows, {ch.name}, skin view "
+                     f"(stride {skin.stride(0)})", lost, ch, skin)
     green = SignalColorChannel.GREEN
 
     def sums_then_epilogue(rr):
@@ -546,6 +616,23 @@ def check_roi(gen, dev, s: int = 64):
     def library(host_rois):
         return [frames[i, :, int(r[3]):int(r[5]), int(r[2]):int(r[4])]
                 .sum((1, 2)) for i, row in enumerate(host_rois) for r in row]
+
+    def bound(rr, ch, weighted):
+        """The sample entry's bound on ``rr``: each ROI pixel of the planes
+        the sample needs (green alone for GREEN, all three for CHROM_GREEN)
+        and, weighted, its f32 weight read once, the ROIs read, the samples
+        written; an add a plane and pixel, weighted a multiply and an add a
+        plane and the weight sum's add."""
+        g = torch.arange(h, device=dev)
+        rows = (g >= rr[..., 3, None]) & (g < rr[..., 5, None])
+        g = torch.arange(w, device=dev)
+        cols = (g >= rr[..., 2, None]) & (g < rr[..., 4, None])
+        npx = _union_pixels(rows, cols)
+        planes = 1 if ch is green else 3
+        nbytes = ((planes + 4 * weighted) * npx + rr.numel() * 4
+                  + rr.shape[0] * rr.shape[1] * 4)
+        ops = (2 * planes + 1 if weighted else planes) * npx
+        return (*bound_ms(nbytes, ops, F32_FLOPS), nbytes)
     t = {}
     main = rois.clone()                  # PR 7's timing set: no 2^24 rect
     main[0, 0] = rois[1, 0]
@@ -560,15 +647,7 @@ def check_roi(gen, dev, s: int = 64):
             sums_plain=time_ms(lambda: rk.roi_sums_plain(frames, rr)),
             sums_then_epilogue=time_ms(lambda: sums_then_epilogue(rr)),
             library=time_ms(lambda: library(host), reps=5))
-        g = torch.arange(h, device=dev)
-        rows = (g >= rr[..., 3, None]) & (g < rr[..., 5, None])
-        g = torch.arange(w, device=dev)
-        cols = (g >= rr[..., 2, None]) & (g < rr[..., 4, None])
-        npx = _union_pixels(rows, cols)
-        # Pixels of 3 planes and the ROIs read once, the samples written.
-        nbytes = 3 * npx + rr.numel() * 4 + s * 2 * 4
-        t[key]["bound"], t[key]["by"] = bound_ms(nbytes, 3.0 * npx,
-                                                 F32_FLOPS)
+        t[key]["bound"], t[key]["by"], nbytes = bound(rr, green, False)
         log(f"K4 times ({key} ROIs, 2 a stream, unweighted, GREEN): "
             f"roi_samples {t[key]['samples']:.4f} ms (plain "
             f"{t[key]['samples_plain']:.4f}), roi_sums {t[key]['sums']:.4f} "
@@ -580,6 +659,16 @@ def check_roi(gen, dev, s: int = 64):
     lost_all = torch.full_like(flag, float("nan"))
     log(f"K4 roi_samples with every ROI row lost (no pixel read): "
         f"{time_ms(lambda: rk.roi_samples(frames, lost_all, green)):.4f} ms")
+    skin_ms = time_ms(lambda: rk.roi_samples(frames, flag, green, skin))
+    skin_plain = time_ms(
+        lambda: rk.roi_samples_plain(frames, flag, green, skin), reps=5)
+    copy_ms = time_ms(lambda: rk.roi_samples(frames, flag, green,
+                                             skin.contiguous()))
+    sb, sby, _ = bound(flag, green, True)
+    log(f"K4 roi_samples skin-weighted (flagship ROIs, GREEN, the view read "
+        f"in place): {skin_ms:.4f} ms (plain {skin_plain:.4f}), with a "
+        f"contiguous copy of the view first {copy_ms:.4f} ms, bound "
+        f"{sb:.6f} ms ({sby})")
     return dict(name="roi_sums", route="cuda",
                 source="bp_from_video_tpu_torch/csrc/roi_sums.cu",
                 replaces="bp_from_video_tpu/pallas/roi_kernel.py:114",
@@ -587,7 +676,10 @@ def check_roi(gen, dev, s: int = 64):
                 plain_ms=f["samples_plain"], bound_ms=f["bound"],
                 bound_by=f["by"], library_ms=f["library"],
                 entries={"roi_samples": dict(ms=f["samples"],
-                                             plain_ms=f["samples_plain"]),
+                                             plain_ms=f["samples_plain"],
+                                             weighted_ms=skin_ms,
+                                             weighted_plain_ms=skin_plain,
+                                             weighted_bound_ms=sb),
                          "roi_sums": dict(ms=f["sums"],
                                           plain_ms=f["sums_plain"])})
 
@@ -809,6 +901,7 @@ def counters():
 def zero_counters():
     for fn in counters().values():
         fn.launches = 0
+    counters()["roi_samples"].weighted_launches = 0
 
 
 def run_clip(engine, params, state, clip, t0: int = 0):
@@ -821,12 +914,18 @@ def run_clip(engine, params, state, clip, t0: int = 0):
     return state, out
 
 
-# Launches per step of each flagship path: K1 crops and K4 samples once
-# (through its sample entry; its sums entry 0 times); K3 runs the hand
-# net's stem and four blocks, plus the face net's stem and, for the
+# Launches per step of each path: K1 crops and K4 samples once (through its
+# sample entry; its sums entry 0 times); on the flagship paths K3 runs the
+# hand net's stem and four blocks, plus the face net's stem and, for the
 # stand-in face net, its four blocks.
 PER_STEP = {
     "standin": {"multi_crop": 1, "dense_s2_block": 10, "roi_samples": 1},
+    # The presets run the face net alone: its stem and four blocks.  K4
+    # samples weighted by the skin confidence where the segmenter runs.
+    "butter_welch_face": {"multi_crop": 1, "dense_s2_block": 5,
+                          "roi_samples": 1},
+    "segmenter_fir": {"multi_crop": 1, "dense_s2_block": 5,
+                      "roi_samples": 1},
     "mesh": {"multi_crop": 1, "dense_s2_block": 6, "roi_samples": 1,
              "bottleneck_chain": 1},
     "mesh, fused_trunk off": {"multi_crop": 1, "stem_packed": 2,
@@ -840,18 +939,15 @@ def flagship(path: str, clip, dev, card: str, profile_dir: str | None = None,
              check_signal: bool = True, **infer):
     """Drive ``flagship_config()`` (with ``infer`` overrides; the face
     landmark net the compiled mesh graph unless ``path`` is "standin") over
-    ``clip`` with the launch counters set to 0 just before and read just
-    after; returns the counts."""
+    ``clip``; returns the launch counts."""
     import dataclasses
 
     from bp_from_video_tpu_torch.config import flagship_config
     from bp_from_video_tpu_torch.models.mesh_graph import face_mesh_graph
     from bp_from_video_tpu_torch.runtime.engine import Engine
-    steps, s = clip.shape[0], clip.shape[1]
-    cfg = flagship_config(s)
+    cfg = flagship_config(clip.shape[1])
     cfg = dataclasses.replace(cfg, inference=dataclasses.replace(
         cfg.inference, **infer))
-    h, w = cfg.frame_height, cfg.frame_width
     if path == "standin":
         engine = Engine(cfg)
         params = template_heads(engine.params)
@@ -859,6 +955,36 @@ def flagship(path: str, clip, dev, card: str, profile_dir: str | None = None,
         engine = Engine(cfg, graphs={"flm_lm": template_mesh(
             face_mesh_graph(7))})
         params = template_heads(engine.params, keys=("hand_lm",))
+    return drive(path, engine, params, clip, dev, card, profile_dir,
+                 check_signal)
+
+
+def preset(name: str, clip, dev, card: str, profile_dir: str | None = None):
+    """Drive ``preset_config(name)`` at the flagship scale (stand-in face
+    net with template heads; the segmenter, where the preset runs one, the
+    trained stand-in) over ``clip``; returns the launch counts."""
+    from bp_from_video_tpu_torch.config import preset_config
+    from bp_from_video_tpu_torch.runtime.engine import Engine
+    engine = Engine(preset_config(name, clip.shape[1]))
+    if (engine.config.inference.person_segmenter
+            and not engine.runner.trained_standin.get("seg")):
+        fail(f"preset [{name}]: the trained segmenter stand-in did not load")
+    params = template_heads(engine.params, keys=("flm_lm",))
+    return drive(name, engine, params, clip, dev, card, profile_dir)
+
+
+def drive(path: str, engine, params, clip, dev, card: str,
+          profile_dir: str | None = None, check_signal: bool = True):
+    """Run ``engine.batch_step`` over ``clip`` (half the streams start
+    tracked) with the launch counters set to 0 just before and read just
+    after, check the counts against ``PER_STEP[path]`` and, with
+    ``check_signal``, BPM (and PTT where there are two ROIs) on the tracked
+    streams; returns the counts."""
+    steps, s = clip.shape[0], clip.shape[1]
+    cfg = engine.config
+    h, w = cfg.frame_height, cfg.frame_width
+    ns = cfg.signal.num_signals
+    tag = f"{'preset' if path in PRESETS else 'flagship'} [{path}]"
     tracked = torch.arange(s, device=dev) < s // 2
     state = tracked_state(engine, h, w, tracked)
     warm = min(10, steps // 2)
@@ -872,43 +998,62 @@ def flagship(path: str, clip, dev, card: str, profile_dir: str | None = None,
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = {k: fn.launches for k, fn in counters().items()}
+    weighted = counters()["roi_samples"].weighted_launches
     want = {k: PER_STEP[path].get(k, 0) * steps for k in launches}
-    log(f"flagship [{path}] launches over {steps} steps: {launches} "
-        f"(expected {want})")
-    if launches != want:
-        fail(f"flagship [{path}]: a kernel of the path was not launched as "
-             "often per step as expected")
+    want_w = steps if cfg.inference.person_segmenter else 0
+    log(f"{tag} launches over {steps} steps: {launches}, roi_samples "
+        f"weighted {weighted} (expected {want}, weighted {want_w})")
+    if launches != want or weighted != want_w:
+        fail(f"{tag}: a kernel of the path was not launched as often per "
+             "step as expected")
+    launches["roi_samples weighted"] = weighted
     sps = (steps - warm) / (t_end - t_mid)
-    log(f"flagship [{path}] S={s} {h}x{w} bf16 on {card}: first {warm} steps "
+    log(f"{tag} S={s} {h}x{w} bf16 on {card}: first {warm} steps "
         f"{t_mid - t:.3f} s; steady {sps:.3f} steps/s = {sps * s:.1f} "
         f"frames/s ({1e3 / sps:.3f} ms/step, host clock, synchronized)")
     n_track = int(state.track.face_tracking.sum())
     if n_track < int(tracked.sum()):
-        fail(f"flagship [{path}]: only {n_track} faces still tracked")
+        fail(f"{tag}: only {n_track} faces still tracked")
     if check_signal:
         bpm, ptt = out.bpm.float().cpu(), out.ptt.float().cpu()
         n_fin = int(torch.isfinite(bpm).all(-1).sum())
         tr = tracked.cpu()
-        if not (bool(torch.isfinite(bpm[tr]).all())
-                and bool(torch.isfinite(ptt[tr]).all())):
-            fail(f"flagship [{path}]: BPM/PTT not finite on the tracked "
-                 "streams")
+        if cfg.inference.person_segmenter:
+            log_roi_skin(out, tag, tr)
+        if not bool(torch.isfinite(bpm[tr]).all()):
+            fail(f"{tag}: BPM not finite on the tracked streams")
         # The clip pulses at 72 BPM, the palm 3 frames (100 ms) after the
         # face.
         if not bool(((bpm[tr] - 72).abs() <= 6).all()):
-            fail(f"flagship [{path}]: BPM {bpm[tr].tolist()} not near 72")
-        if not bool(((ptt[tr] + 100).abs() <= 1000.0 / 30.0).all()):
-            fail(f"flagship [{path}]: PTT {ptt[tr].tolist()} not near "
-                 "-100 ms")
-        if tuple(out.proc_y.shape) != (s, 2, cfg.signal.signal_max_samples):
-            fail(f"flagship [{path}]: proc_y shape {tuple(out.proc_y.shape)}")
-        log(f"flagship [{path}] outputs on tracked streams: BPM "
+            fail(f"{tag}: BPM {bpm[tr].tolist()} not near 72")
+        if ns > 1 and not (
+                bool(torch.isfinite(ptt[tr]).all())
+                and bool(((ptt[tr] + 100).abs() <= 1000.0 / 30.0).all())):
+            fail(f"{tag}: PTT {ptt[tr].tolist()} not near -100 ms")
+        if tuple(out.proc_y.shape) != (s, ns, cfg.signal.signal_max_samples):
+            fail(f"{tag}: proc_y shape {tuple(out.proc_y.shape)}")
+        log(f"{tag} outputs on tracked streams: BPM "
             f"{sorted(set(bpm[tr].flatten().tolist()))}, PTT ms "
             f"{sorted(set(ptt[tr].flatten().tolist()))}; streams with "
-            f"finite BPM {n_fin}/{s}; tracking face {n_track}/{s}")
+            f"finite BPM {n_fin}/{s}; tracking face {n_track}/{s}; proc_y "
+            f"{tuple(out.proc_y.shape)}")
     if profile_dir:
-        profile(engine, params, state, clip[:9], steps, profile_dir, path)
+        profile(engine, params, state, clip[:10], steps, profile_dir, path)
     return launches
+
+
+def log_roi_skin(out, tag: str, tracked) -> None:
+    """Log the mean skin confidence over each tracked stream's ROI at the
+    last step: the weights K4 sampled with."""
+    from bp_from_video_tpu_torch.models.runner import skin_confidence
+    skin = skin_confidence(out.models.seg_conf)
+    r = out.rois[:, 0].cpu()
+    mean = [round(float(skin[i, int(r[i, 3]):int(r[i, 5]),
+                             int(r[i, 2]):int(r[i, 4])].mean()), 4)
+            for i in range(r.shape[0])
+            if tracked[i] and bool(torch.isfinite(r[i]).all())]
+    log(f"{tag}: mean skin confidence over the ROI of each tracked stream "
+        f"(least {min(mean)}): {mean}")
 
 
 def lone_unit_graph(dev, s: int = 64):
@@ -956,9 +1101,12 @@ def lone_unit_graph(dev, s: int = 64):
 
 
 def profile(engine, params, state, clip, t0, out_dir, path):
-    """Trace ``clip`` through the engine: device time by kernel (and copy),
-    the device's busy share of the wall time, and the host sync points of
-    one more step (CUDA sync debug mode)."""
+    """Trace all but the last two steps of ``clip`` through the engine:
+    device time by kernel (and copy) and the device's busy share of the
+    wall time; then one step traced with its operators' shapes (kept out
+    of the timed window: recording them costs host time), to find copies
+    of frame-sized f32 maps; then the host sync points of the last step
+    (CUDA sync debug mode)."""
     import collections
     import warnings
 
@@ -966,9 +1114,10 @@ def profile(engine, params, state, clip, t0, out_dir, path):
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as prof
     os.makedirs(out_dir, exist_ok=True)
-    n = clip.shape[0] - 1
+    n = clip.shape[0] - 2
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    with prof(activities=acts) as p:
         t = time.perf_counter()
         state, _ = run_clip(engine, params, state, clip[:n], t0=t0)
         torch.cuda.synchronize()
@@ -985,10 +1134,30 @@ def profile(engine, params, state, clip, t0, out_dir, path):
     for e in evs[:20]:
         log(f"  {e.self_device_time_total / 1e3 / n:9.4f} ms/step "
             f"x{e.count / n:6.1f}  {e.key[:100]}")
+    # Copies of a frame-sized f32 map: a copy of the skin weights, which K4
+    # reads in place, would be one (78.6 MB at the flagship).
+    with prof(activities=acts, record_shapes=True) as p:
+        state, _ = run_clip(engine, params, state, clip[n:n + 1], t0=t0 + n)
+        torch.cuda.synchronize()
+    trace = os.path.join(out_dir, f"flagship_{path}_shapes.json")
+    p.export_chrome_trace(trace)
+    cfg = engine.config
+    plane = [cfg.num_streams, cfg.frame_height, cfg.frame_width]
+    with open(trace) as f:
+        copies = [e.get("args", {}) for e in json.load(f)["traceEvents"]
+                  if e.get("name") == "aten::copy_"]
+    if not any("Input Dims" in a and "Input type" in a for a in copies):
+        fail(f"profile [{path}]: the trace records no copy's shapes")
+    maps = [a["Input type"][1] for a in copies
+            if a.get("Input Dims", [])[1:2] == [plane]]
+    log(f"profile [{path}]: copies of an {plane} map in one step: "
+        f"{len(maps)} (f32 {maps.count('float')})")
+    if "float" in maps:
+        fail(f"profile [{path}]: a frame-sized f32 map was copied")
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        run_clip(engine, params, state, clip[n:], t0=t0 + n)
+        run_clip(engine, params, state, clip[n + 1:], t0=t0 + n + 1)
         torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("default")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1001,11 +1170,17 @@ def profile(engine, params, state, clip, t0, out_dir, path):
 
 def card_vs_cpu(steps: int, dev):
     """A small f32 config on the card (kernels) and on the CPU (plain
-    versions) over one clip: with stand-in nets, and with the face net a
-    compiled mesh graph of reduced size, every stage fused."""
+    versions) over one clip (person scenes for ``segmenter_fir``): with
+    stand-in nets, with the face net a compiled mesh graph of reduced size,
+    every stage fused, and the two presets (BPM equal; the FIR taps
+    designed on each device side by side)."""
+    import dataclasses
+
     from bp_from_video_tpu_torch.config import (EngineConfig,
-                                                InferenceConfig)
+                                                InferenceConfig,
+                                                preset_config)
     from bp_from_video_tpu_torch.models.mesh_graph import face_mesh_graph
+    from bp_from_video_tpu_torch.ops import fir
     from bp_from_video_tpu_torch.runtime.engine import Engine
     s, h, w = 2, 96, 128
     clip = pulse_clip(steps, s, h, w, split=60, seed=4, device=dev)
@@ -1039,6 +1214,42 @@ def card_vs_cpu(steps: int, dev):
         if not bool(((ptt_a - ptt_b).abs() <= 1000.0 / 30.0).all()):
             fail(f"card and CPU PTT differ by more than one sample period "
                  f"[{name}]")
+    person = pulse_clip(steps, s, h, w, split=60, seed=6, device=dev,
+                        person=True)
+    for name in PRESETS:
+        cfg = dataclasses.replace(preset_config(name, s, h, w),
+                                  compute_dtype="float32")
+        on = person if name == "segmenter_fir" else clip
+        outs, taps = {}, {}
+        for where in ("cuda", "cpu"):
+            eng = Engine(cfg, device=where)
+            params = template_heads(eng.params, keys=("flm_lm",))
+            st = tracked_state(eng, h, w, torch.ones(s, dtype=torch.bool,
+                                                     device=eng.device))
+            t = time.perf_counter()
+            _, out = run_clip(eng, params, st, on.to(where))
+            log(f"small f32 [{name}] S={s} {h}x{w} on {where}: {steps} "
+                f"steps in {time.perf_counter() - t:.2f} s")
+            outs[where] = out
+            # The FIR design at the clip's sampling rate, on each device.
+            fs = torch.full((s,), 30.0, device=eng.device)
+            bands, desired = fir.reference_fir_bands(
+                cfg.signal.min_freq, cfg.signal.max_freq, cfg.signal.fir_df,
+                fs)
+            taps[where] = fir.firls_bandpass(cfg.signal.fir_taps, bands,
+                                             desired, fs)[0].cpu()
+        a, b = outs["cuda"], outs["cpu"]
+        bpm_a, bpm_b = a.bpm.cpu(), b.bpm
+        log(f"card vs CPU [{name}]: BPM {bpm_a.tolist()} / {bpm_b.tolist()}")
+        if not (bool(torch.isfinite(bpm_a).all())
+                and torch.equal(bpm_a, bpm_b)):
+            fail(f"card and CPU BPM differ [{name}]")
+        m = cfg.signal.fir_taps // 2
+        d = float((taps["cuda"] - taps["cpu"]).abs().max())
+        log(f"FIR taps at 30 fps, card / CPU: centre "
+            f"{taps['cuda'][m]:.9g} / {taps['cpu'][m]:.9g}, first "
+            f"{taps['cuda'][0]:.9g} / {taps['cpu'][0]:.9g}; largest "
+            f"difference {d:.3g} (taps' largest {taps['cpu'].abs().max():.3g})")
 
 
 def main():
@@ -1101,6 +1312,20 @@ def main():
     flagship("mesh, every stage fused", clip[:8], dev, card,
              check_signal=False, fused_bn_min_hw=0)
     log("phase 3c: both stems ran through K2; every mesh stage ran fused")
+    for phase, name in zip(("3e", "3f"), PRESETS):
+        if name == "segmenter_fir":
+            # The segmenter weights by skin: a clip of person scenes, each
+            # stream's face on the face box the trackers hold.
+            del clip
+            torch.cuda.empty_cache()
+            clip = pulse_clip(STEPS, cfg.num_streams, cfg.frame_height,
+                              cfg.frame_width, split=300, seed=5, device=dev,
+                              person=True)
+        n = preset(name, clip, dev, card, args.profile)
+        launches["roi_samples"] += n["roi_samples"]
+        launches["roi_samples weighted"] += n["roi_samples weighted"]
+        log(f"phase {phase}: preset {name} ran through K1, K3 and K4"
+            f"{' (weighted)' if n['roi_samples weighted'] else ''}")
     del clip
     torch.cuda.empty_cache()
     launches["bottleneck_s1"] = lone_unit_graph(dev)
@@ -1114,8 +1339,12 @@ def main():
         k["launches"] = launches[k["name"]]
         for name, entry in k.get("entries", {}).items():
             entry["launches"] = launches[name]
-    # K4's row counts the launches of both its entries.
+    # K4's sample entry: launches on the flagship stand-in path and phases
+    # 3e and 3f, and of those the skin-weighted ones.
     k4 = next(k for k in kernels if "entries" in k)
+    k4["entries"]["roi_samples"]["weighted_launches"] = launches[
+        "roi_samples weighted"]
+    # K4's row counts the launches of both its entries.
     k4["launches"] = sum(e["launches"] for e in k4["entries"].values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -331,22 +331,62 @@ def test_cuda_roi_word_route_refuses_unaligned_operands(cuda_device):
     from bp_from_video_tpu_torch.kernels import build
     lib = build.load("roi_sums")
     fn = lib.roi_samples_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
     buf = torch.zeros(2 * 3 * 8 * 8 + 1, dtype=torch.uint8,
                       device=cuda_device)
+    wbuf = torch.zeros(2 * 6 * 8 * 8 + 4, device=cuda_device)
     rois = torch.zeros((2, 1, 6), device=cuda_device)
     out = torch.zeros((2, 1), device=cuda_device)
     stream = torch.cuda.current_stream().cuda_stream
-    for ptr, vec, channel in ((buf.data_ptr() + 1, 4, 1),
-                              (buf.data_ptr(), 4, 0),
-                              (buf.data_ptr(), 2, 1)):
-        assert fn(ptr, rois.data_ptr(), None, out.data_ptr(), 2, 1, 8, 8,
+    w0 = wbuf.data_ptr()
+    for ptr, wp, ws, vec, channel in (
+            (buf.data_ptr() + 1, None, 0, 4, 1),
+            (buf.data_ptr(), None, 0, 4, 0),
+            (buf.data_ptr(), None, 0, 2, 1),
+            (buf.data_ptr(), w0 + 4, 64, 4, 1),     # weights off 16 bytes
+            (buf.data_ptr(), w0, 66, 4, 1),         # a stream off 16 bytes
+            (buf.data_ptr(), w0, 63, 1, 1)):        # streams overlap
+        assert fn(ptr, rois.data_ptr(), wp, ws, out.data_ptr(), 2, 1, 8, 8,
                   vec, channel, stream) != 0
-    assert fn(buf.data_ptr(), rois.data_ptr(), None, out.data_ptr(), 2, 1,
-              8, 8, 4, 1, stream) == 0
+    for wp, ws in ((None, 0), (w0, 384), (w0 + 4, 65)):
+        assert fn(buf.data_ptr(), rois.data_ptr(), wp, ws, out.data_ptr(),
+                  2, 1, 8, 8, 4 if ws % 4 == 0 else 1, 1, stream) == 0
     torch.cuda.synchronize()
     assert bool(torch.isnan(out).all())         # empty rects
+
+
+@pytest.mark.parametrize("channel", ["GREEN", "CHROM_GREEN"])
+@pytest.mark.parametrize("layout", ["full_masks", "skin_only"])
+def test_cuda_roi_reads_a_strided_weight_view_in_place(cuda_device, layout,
+                                                       channel):
+    """The segmenter's skin view, as the engine passes it: with the full
+    masks a channel of [S, 6, H, W] (stream stride 6 H W), read in place on
+    the word route; skin-only, [S, 1, H, W].  Bit-equal to the same launch
+    on a contiguous copy, and the view is not copied."""
+    from bp_from_video_tpu_torch.models.runner import skin_confidence
+    rng = np.random.default_rng(13)
+    s, h, w = 3, 48, 64
+    c = 6 if layout == "full_masks" else 1
+    conf = torch.from_numpy(rng.uniform(0, 1, (s, c, h, w)).astype(
+        np.float32)).to(cuda_device)
+    frames = torch.from_numpy(rng.integers(0, 256, (s, 3, h, w),
+                                           dtype=np.uint8)).to(cuda_device)
+    rois = torch.from_numpy(_edge_rois(h, w)[:s]).to(cuda_device)
+    view = skin_confidence(conf)
+    assert trk.weights_in_place(view) and trk.word_route(frames, view)
+    assert view.stride(0) == c * h * w
+    ch = SignalColorChannel[channel]
+    got = trk.roi_samples(frames, rois, ch, view)
+    want = trk.roi_samples(frames, rois, ch, view.contiguous())
+    gs, gd = trk.roi_sums(frames, rois.nan_to_num(), view)
+    ws, wd = trk.roi_sums(frames, rois.nan_to_num(), view.contiguous())
+    torch.cuda.synchronize()
+    _same_samples(got, want)
+    assert torch.equal(gs, ws) and torch.equal(gd, wd)
+    plain = trk.roi_samples_plain(frames, rois, ch, view)
+    assert torch.equal(torch.isnan(plain), torch.isnan(got))
 
 
 def _bn_units(seed, units, c, d, cout, dtype, device):
@@ -638,3 +678,53 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         twk.multi_crop(torch.zeros((1, 3, 1, 8), dtype=torch.uint8,
                                    device=cuda_device),
                        torch.zeros((1, 1, 4), device=cuda_device), (4,))
+
+
+def test_cuda_chain_and_welch_timestamps_do_not_depend_on_tf32(cuda_device):
+    """The ``segmenter_fir`` chain (cubic interpolation, linear detrend,
+    FIR) and Welch on the card with TF32 matmuls allowed and then not:
+    the interpolation grid, the timestamps its brackets select and the
+    Welch frequencies are equal in both runs (selection is a gather, the
+    grid elementwise), and the chain's values stay finite where valid."""
+    from bp_from_video_tpu_torch.config import (SignalConfig,
+                                                SignalProcessingMethod as M,
+                                                SignalSpectrumTransform as T)
+    from bp_from_video_tpu_torch.ops import chain, spectrum
+    from bp_from_video_tpu_torch.ops import signal as sig
+    rng = np.random.default_rng(14)
+    s, n = 8, 250
+    # Seconds since start near a minute, where a TF32 product of a
+    # timestamp would be off by more than a frame.
+    t = 60.0 + (np.arange(n) + rng.uniform(-0.2, 0.2, (s, n))) / 30.0
+    y = 120 + 3 * np.sin(2 * np.pi * 1.2 * t) + rng.normal(0, 0.5, (s, n))
+    y[:, [7, 8, 100, 200]] = np.nan
+    x = torch.from_numpy(t.astype(np.float32)).to(cuda_device)
+    yy = torch.from_numpy(y.astype(np.float32)).to(cuda_device)
+    cfg = SignalConfig(processing_methods=(M.INTERP_CUBIC, M.DETREND_LINEAR,
+                                           M.FILTER_FIR),
+                       spectrum_transform=T.PGRAM_WELCH)
+    st = chain.ChainState(x, yy, sig.valid_y(yy), sig.valid_x(x),
+                          sig.mean_fs(x))
+    runs = []
+    try:
+        for tf32 in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            grid, _, _ = chain._block_grid(st)
+            cx = sig.compact(st.valid, st.x)
+            m, x0s, x1s = sig.bracket_matrix(cx.values, cx.count, grid)
+            sel = sig.select_rows(m)
+            px, py = chain.process_signal(cfg, x, yy)
+            sx, sy = spectrum.transform_signal(cfg, px, py)
+            runs.append((grid, sig.selmm(sel, sig.zero_infs(x0s)),
+                         sig.selmm(sel, sig.zero_infs(x1s)), px, sx, py))
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for a, b in zip(runs[0][:5], runs[1][:5]):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    # The selected bracket ends are ring timestamps, exactly.
+    sel = runs[1][1]
+    has = sel != 0
+    assert bool(torch.isin(sel[has], x).all())
+    assert bool(torch.isfinite(runs[1][5]).all())

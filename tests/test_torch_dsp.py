@@ -10,7 +10,6 @@ f32 roundoff; every tolerance below says why it is what it is.
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import scipy.signal
 import torch
 
@@ -20,9 +19,7 @@ from bp_from_video_tpu.ops import correlate as jcorr
 from bp_from_video_tpu.ops import iir as jiir
 from bp_from_video_tpu.ops import signal as jsig
 from bp_from_video_tpu.ops import spectrum as jspec
-from bp_from_video_tpu_torch.config import (SignalConfig,
-                                            SignalProcessingMethod,
-                                            SignalSpectrumTransform)
+from bp_from_video_tpu_torch.config import SignalConfig
 from bp_from_video_tpu_torch.ops import chain, correlate, iir, spectrum
 from bp_from_video_tpu_torch.ops import signal as sig
 
@@ -217,20 +214,3 @@ def test_process_signal_and_transform_match_reference():
     np.testing.assert_array_equal(
         _np(sig.peak_auto(sx, sy)[0]),
         np.asarray(jax.vmap(jsig.peak_auto)(wx, wy)[0]))
-
-
-@pytest.mark.parametrize("method", [SignalProcessingMethod.FILTER_FIR,
-                                    SignalProcessingMethod.INTERP_CUBIC,
-                                    SignalProcessingMethod.DIFF_1])
-def test_unported_chain_methods_raise(method):
-    x, y = _rings()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chain.process_signal(SignalConfig(processing_methods=(method,)),
-                             _t(x), _t(y))
-
-
-def test_unported_spectra_raise():
-    x, y = _rings()
-    cfg = SignalConfig(spectrum_transform=SignalSpectrumTransform.PGRAM_WELCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spectrum.transform_signal(cfg, _t(x), _t(y))

@@ -23,7 +23,8 @@ from bp_from_video_tpu.config import SignalConfig as JSignalConfig
 from bp_from_video_tpu.runtime.engine import Engine as JEngine
 from bp_from_video_tpu_torch import convert
 from bp_from_video_tpu_torch.config import (EngineConfig, InferenceConfig,
-                                            SignalConfig, flagship_config)
+                                            SignalConfig, flagship_config,
+                                            preset_config, preset_configs)
 from bp_from_video_tpu_torch.models.runner import TrackState, map_leaves
 from bp_from_video_tpu_torch.runtime.engine import Engine
 
@@ -262,10 +263,19 @@ def test_flagship_config_matches_bench():
                                            "bp_from_video_tpu_torch.")
 
 
+@pytest.mark.parametrize("name", sorted(preset_configs()))
+def test_preset_config_matches_bench(name):
+    sys.path.insert(0, REPO)
+    import bench
+    want, _ = bench.build_config(name, 64, 480, 640, on_tpu=True)
+    got = preset_config(name)
+    assert repr(got) == repr(want).replace("bp_from_video_tpu.",
+                                           "bp_from_video_tpu_torch.")
+
+
 def test_unported_paths_raise():
-    for kw in (dict(person_segmenter=True), dict(face_detector=True),
-               dict(rotation_mode="shear"), dict(pack_s2d=64),
-               dict(fuse_dw_pw=True)):
+    for kw in (dict(face_detector=True), dict(rotation_mode="shear"),
+               dict(pack_s2d=64), dict(fuse_dw_pw=True)):
         cfg = EngineConfig(inference=InferenceConfig(**dict(FUSED, **kw)),
                            frame_height=H, frame_width=W)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -276,6 +286,12 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import bp_from_video_tpu_torch.runtime.engine\n"
             "import bp_from_video_tpu_torch.convert\n"
+            "import bp_from_video_tpu_torch.ops.fir\n"
+            "import bp_from_video_tpu_torch.ops.tridiag\n"
+            "from bp_from_video_tpu_torch.models.blaze import "
+            "segmenter_apply\n"
+            "from bp_from_video_tpu_torch.models.runner import "
+            "skin_confidence\n"
             "import bp_from_video_tpu_torch.models.mesh_graph as mg\n"
             "import bp_from_video_tpu_torch.models.tflite_compiler as tc\n"
             "import chip_smoke\n"

@@ -127,3 +127,6 @@ def test_word_route_is_taken_only_where_words_are_aligned(w, offset, woffset,
     assert trk.word_route(frames, weights) == word
     if woffset == 0:
         assert trk.word_route(frames, wbuf.view(s, h, w)) == word
+    # Streams whose maps are not a whole number of 16-byte vectors apart.
+    assert not trk.word_route(frames, wbuf[woffset:].view(s, h, w),
+                              wstride=h * w + 2)
