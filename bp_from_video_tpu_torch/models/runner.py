@@ -24,15 +24,17 @@ machines without TensorFlow.  A compiled graph is always compiled
 ``batch_flexible``: the reference maps a batch-1 graph over the crops, the
 port feeds the batch.
 
-The segmenter (the stand-in, trained or seeded) runs on every frame
-resized to its input, planar end to end: six class confidences and their
-argmax at frame resolution (``seg_full_masks``), or the skin channel alone
-at frame resolution with the class map at model resolution.
+The standalone face detector (``face_detector``) runs on every frame of
+every stream, with no tracking gate and no host sync: its detections,
+largest first, are ``ModelResults.face_detector``.  The segmenter (the
+stand-in, trained or seeded) runs on every frame resized to its input,
+planar end to end: six class confidences and their argmax at frame
+resolution (``seg_full_masks``), or the skin channel alone at frame
+resolution with the class map at model resolution.
 
 Not ported yet (they raise ``NotImplementedError`` naming their ROADMAP
-Queue 1 item): the standalone face detector (10b), the rotated crop modes
-(10c), compiled detectors and a compiled segmenter, ``pack_s2d`` and
-``fuse_dw_pw`` (10e).
+Queue 1 item): the rotated crop modes (10c), compiled detectors and a
+compiled segmenter, ``pack_s2d`` and ``fuse_dw_pw`` (10e).
 """
 
 from __future__ import annotations
@@ -203,9 +205,6 @@ class InferenceRunner:
         self.h, self.w = frame_height, frame_width
         self.dtype = dtype
         self.device = resolve_device(device)
-        if cfg.face_detector:
-            raise NotImplementedError(
-                "face detector: not ported yet (ROADMAP Queue 1 item 10b)")
         if cfg.resolved_rotation_mode() != "cover":
             raise NotImplementedError(
                 f"rotation_mode {cfg.resolved_rotation_mode()!r}: not ported "
@@ -252,6 +251,11 @@ class InferenceRunner:
             anchors_lib.FACE_SHORT_RANGE)).to(self.device)
         self.palm_anchors = torch.from_numpy(anchors_lib.generate_anchors(
             anchors_lib.PALM)).to(self.device)
+        if cfg.face_detector:
+            path = resolve(cfg.face_detector_path)
+            self._load_detector("face_det",
+                                tc.load_tflite_file(path) if path else None,
+                                128, 896, NUM_FACE_DET_KPS)
         if cfg.face_landmarker:
             det, lm = bundle(resolve(cfg.face_landmarker_path),
                              lambda k: k == "face_detector.tflite",
@@ -722,7 +726,8 @@ class InferenceRunner:
                       frames_rgb: Tensor) -> tuple[TrackState, ModelResults]:
         """All enabled models over a stream batch: uint8/float frames
         [S, H, W, 3] or planar [S, 3, H, W]; every TrackState field carries
-        a leading [S].  Detectors are gated at batch level."""
+        a leading [S].  The landmarkers' detectors are gated at batch
+        level; the standalone face detector runs on every frame."""
         planar_in = is_planar_frames(frames_rgb)
 
         def nhwc_at(idx):
@@ -732,6 +737,16 @@ class InferenceRunner:
         s = frames_rgb.shape[0]
         video = self.cfg.running_mode is RunningMode.VIDEO
         res = self.empty_results(s)
+
+        if self.cfg.face_detector:
+            # Every frame of every stream, ungated: one batched detector.
+            nms = detection.sort_by_area_desc(self._run_detector(
+                "face_det", detection.FACE_DECODE, self.face_anchors,
+                params["face_det"], nhwc_at(None), "pm1", MAX_FACE_DETS))
+            res = res._replace(face_detector=Detections(
+                bbox=torch.round(nms.boxes),
+                points=_clip_floor(nms.kps, self.w, self.h),
+                count=nms.count))
 
         rect_a = det_ok = None
         new_face_rect, new_face_tracking = state.face_rect, state.face_tracking

@@ -3,9 +3,9 @@
 
     batch_step(params, state, frames, timestamps) -> (state, StepOutputs)
 
-runs inference (detect-then-track), ROI geometry, ROI sampling (kernel K4),
-the ring pushes, the DSP chain, spectra (Lomb-Scargle, Welch or rFFT), BPM
-peaks,
+(and ``batch_step_lagged``, F frames a stream in one step) runs inference
+(detect-then-track), ROI geometry, ROI sampling (kernel K4), the ring
+pushes, the DSP chain, spectra (Lomb-Scargle, Welch or rFFT), BPM peaks,
 face-to-palm correlation and PTT peaks for a batch of streams.  Every
 state and output field carries a leading stream axis [S]; rings keep time
 on their last axis (the ROI ring on its second-to-last, before the 6-tuple).
@@ -70,6 +70,15 @@ class StepOutputs(NamedTuple):
     proc_range: Tensor   # [S, 4] joint (min_x, max_x, min_y, max_y)
     spec_range: Tensor   # [S, 4]
     corr_range: Tensor   # [S, 4]
+
+
+def _raw_push(st: SignalState, samples: Tensor, timestamps: Tensor
+              ) -> tuple[SignalState, Tensor]:
+    """The raw ring pushed where ``timestamps`` is fresh (finite and not
+    the ring's tail); returns (state, fresh)."""
+    fresh = torch.isfinite(timestamps) & (timestamps != st.raw_x[:, -1])
+    return st._replace(raw_x=sig.push_if(fresh, st.raw_x, timestamps),
+                       raw_y=sig.push_if(fresh, st.raw_y, samples)), fresh
 
 
 def _group_range(xs: Tensor, ys: Tensor) -> Tensor:
@@ -157,11 +166,8 @@ class Engine:
                     rois: Tensor, models: ModelResults, samples: Tensor,
                     timestamps: Tensor) -> tuple[SignalState, StepOutputs]:
         """Raw ring push, then :meth:`signal_analyze`."""
-        fresh = torch.isfinite(timestamps) & (timestamps != st.raw_x[:, -1])
-        raw_x = sig.push_if(fresh, st.raw_x, timestamps)
-        raw_y = sig.push_if(fresh, st.raw_y, samples)
-        st = SignalState(roi_x, roi_y, raw_x, raw_y,
-                         st.bpm_x, st.bpm_y, st.ptt_x, st.ptt_y)
+        st, fresh = _raw_push(st._replace(roi_x=roi_x, roi_y=roi_y), samples,
+                              timestamps)
         return self.signal_analyze(st, rois, models, timestamps, fresh)
 
     def signal_analyze(self, st: SignalState, rois: Tensor,
@@ -221,6 +227,53 @@ class Engine:
         signals, out = self.signal_step(state.signals, models, frames_rgb,
                                         timestamps)
         return EngineState(signals, track), out
+
+    def batch_step_lagged(self, params, state: EngineState,
+                          frames_rgb: Tensor, timestamps: Tensor
+                          ) -> tuple[EngineState, StepOutputs]:
+        """Lagged-rect temporal micro-batch: F frames per stream in one
+        step (frames [F, S, ...] in either layout, timestamps [F, S]).
+
+        Every frame of the window is cropped with the tracking rects from
+        before the window, so the nets run once at batch F*S; the track
+        advances from the last frame's block.  Per frame, in order, the
+        ROI ring takes its ROIs and the raw ring its sample (pushed where
+        the timestamp is fresh); the window analysis runs once, on the
+        last frame.  The ROI sampling of all F frames is one K4 launch:
+        each (stream, ROI) sum is computed alone, so it is bit-equal to F
+        launches of S streams."""
+        f_n, s_n = timestamps.shape
+        flat = frames_rgb.reshape((f_n * s_n,) + frames_rgb.shape[2:])
+        tiled = map_leaves(
+            lambda a: a.repeat((f_n,) + (1,) * (a.ndim - 1)), state.track)
+        track_flat, models_flat = self.runner.predict_batch(params, tiled,
+                                                            flat)
+        new_track = map_leaves(lambda a: a[(f_n - 1) * s_n:], track_flat)
+        models_f = map_leaves(
+            lambda a: a.reshape((f_n, s_n) + a.shape[1:]), models_flat)
+
+        sig_st, rois_f = state.signals, []
+        for f in range(f_n):
+            roi_x, roi_y, rois = self.roi_stage(
+                sig_st, map_leaves(lambda a: a[f], models_f), timestamps[f])
+            sig_st = sig_st._replace(roi_x=roi_x, roi_y=roi_y)
+            rois_f.append(rois)
+        weights = None
+        if self.config.inference.person_segmenter:
+            weights = skin_confidence(models_flat.seg_conf)
+        samples = roi_ops.sample_rois_batch(
+            flat, torch.cat(rois_f), self.config.signal.color_channel,
+            weights, use_pallas=self.config.inference.use_pallas
+        ).reshape(f_n, s_n, -1)
+        for f in range(f_n):
+            sig_st, _ = _raw_push(sig_st, samples[f], timestamps[f])
+
+        ts_last = timestamps[-1]
+        fresh_last = torch.isfinite(ts_last) & (ts_last != sig_st.bpm_x[:, -1])
+        signals, out = self.signal_analyze(
+            sig_st, rois_f[-1], map_leaves(lambda a: a[-1], models_f),
+            ts_last, fresh_last)
+        return EngineState(signals, new_track), out
 
     def step(self, params, state: EngineState, frame_rgb: Tensor,
              timestamp: Tensor) -> tuple[EngineState, StepOutputs]:

@@ -29,23 +29,33 @@ Phases (each fatal on failure):
    linear detrend, least-squares FIR, Lomb-Scargle), both at 64 streams of
    480x640 bf16, 3e on the same clip, 3f on one whose frames are person
    scenes (``person_scene``) pulsing the same way, so that the segmenter
-   finds skin in every forehead ROI;
+   finds skin in every forehead ROI; (3g) ``dual_roi_ls`` (CHROM_GREEN
+   sampling) and (3h) ``ptt_filtered`` (a 5-deep ROI filter), 64 streams
+   on the texture clip; (3i) ``multistream`` (all four models: the
+   standalone face detector on every frame, both landmarkers, the
+   segmenter weighting both ROIs) at 8 streams on the person scenes, each
+   step followed by ``Drawer.compose`` of all 8 streams, then one
+   headless ``present``; (3j) the same through ``batch_step_lagged`` in
+   windows of 4 frames, composing stream 0 alone (the display point);
 4. run a small f32 config on the card and on the CPU (plain versions) over
-   the same clips, with stand-ins, with a compiled face graph and with
-   both presets: BPM equal, PTT within one sample period; the FIR taps
-   designed on the card beside those designed on the CPU.
+   the same clips, with stand-ins, with a compiled face graph, with both
+   earlier presets and with ``multistream`` (plain and lagged, composed):
+   BPM equal, PTT within one sample period, composed images within the
+   renderer's tolerance; the FIR taps designed on the card beside those
+   designed on the CPU.
 
 Prints the card's name and power limit first, one JSON line with every
 kernel's numbers before the last line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
-``--profile DIR`` also traces a few steps of phases 3, 3b, 3e and 3f with
-``torch.profiler`` (kernel time by name, device busy share) and writes the
-traces to DIR.
+``--profile DIR`` also traces a few steps of phases 3, 3b and 3e-3j with
+``torch.profiler`` (kernel time by name, device busy share; on 3i and 3j
+the compose's share of device time) and writes the traces to DIR.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
@@ -64,9 +74,13 @@ F32_FLOPS = 67e12
 BF16_ULP = 2.0 ** -7          # relative spacing of bf16 values (8-bit mantissa)
 # Engine steps per run: enough to fill the 250-sample signal ring.
 STEPS = 260
-# The BASELINE presets this port runs end to end on the card (phases 3e,
-# 3f and 4).
-PRESETS = ("butter_welch_face", "segmenter_fir")
+# The BASELINE presets this port runs end to end on the card: phases 3e,
+# 3f, 3g and 3h (and 4 for the first two); ``multistream`` in 3i and 3j.
+PRESETS = ("butter_welch_face", "segmenter_fir", "dual_roi_ls",
+           "ptt_filtered", "multistream")
+# Frames a stream per lagged step (phase 3j, the JAX bench's
+# ``multistream_mb4``).
+LAGGED = 4
 
 
 def log(*a):
@@ -904,13 +918,27 @@ def zero_counters():
     counters()["roi_samples"].weighted_launches = 0
 
 
-def run_clip(engine, params, state, clip, t0: int = 0):
+def run_clip(engine, params, state, clip, t0: int = 0, render=None,
+             lagged: int = 0):
+    """Step ``engine`` over ``clip`` [T, S, ...] (frame ``t0 + i`` stamped
+    (t0 + i + 1) / 30 s): ``batch_step`` a frame, or with ``lagged`` = F
+    ``batch_step_lagged`` a window of F frames; ``render(frames, out)``,
+    when given, after each step with its last frame of every stream."""
     out = None
     s = clip.shape[1]
-    for i in range(clip.shape[0]):
-        ts = torch.full((s,), (t0 + i + 1) / 30.0, dtype=torch.float32,
-                        device=engine.device)
-        state, out = engine.batch_step(params, state, clip[i], ts)
+    f = lagged or 1
+    for i in range(0, clip.shape[0] - f + 1, f):
+        ts = torch.stack([torch.full((s,), (t0 + i + j + 1) / 30.0,
+                                     dtype=torch.float32,
+                                     device=engine.device)
+                          for j in range(f)])
+        if lagged:
+            state, out = engine.batch_step_lagged(params, state,
+                                                  clip[i:i + f], ts)
+        else:
+            state, out = engine.batch_step(params, state, clip[i], ts[0])
+        if render is not None:
+            render(clip[i + f - 1], out)
     return state, out
 
 
@@ -926,6 +954,17 @@ PER_STEP = {
                           "roi_samples": 1},
     "segmenter_fir": {"multi_crop": 1, "dense_s2_block": 5,
                       "roi_samples": 1},
+    # Both landmarkers, as the flagship.  The lagged step crops every frame
+    # of its window in one K1 launch, runs each net once at batch F*S, and
+    # samples the window's frames in one K4 launch (each (stream, ROI)
+    # block sums alone, so it is bit-equal to F launches): the counts are
+    # per window.
+    "dual_roi_ls": {"multi_crop": 1, "dense_s2_block": 10, "roi_samples": 1},
+    "ptt_filtered": {"multi_crop": 1, "dense_s2_block": 10,
+                     "roi_samples": 1},
+    "multistream": {"multi_crop": 1, "dense_s2_block": 10, "roi_samples": 1},
+    "multistream, lagged": {"multi_crop": 1, "dense_s2_block": 10,
+                            "roi_samples": 1},
     "mesh": {"multi_crop": 1, "dense_s2_block": 6, "roi_samples": 1,
              "bottleneck_chain": 1},
     "mesh, fused_trunk off": {"multi_crop": 1, "stem_packed": 2,
@@ -956,45 +995,138 @@ def flagship(path: str, clip, dev, card: str, profile_dir: str | None = None,
             face_mesh_graph(7))})
         params = template_heads(engine.params, keys=("hand_lm",))
     return drive(path, engine, params, clip, dev, card, profile_dir,
-                 check_signal)
+                 check_signal)[0]
 
 
-def preset(name: str, clip, dev, card: str, profile_dir: str | None = None):
-    """Drive ``preset_config(name)`` at the flagship scale (stand-in face
-    net with template heads; the segmenter, where the preset runs one, the
-    trained stand-in) over ``clip``; returns the launch counts."""
+def preset_engine(name: str, streams: int):
+    """``preset_config(name)`` at ``streams`` streams of 480x640 bf16 and its
+    params: template heads on its landmark nets (stand-ins), the trained
+    segmenter stand-in where the preset runs one."""
     from bp_from_video_tpu_torch.config import preset_config
     from bp_from_video_tpu_torch.runtime.engine import Engine
-    engine = Engine(preset_config(name, clip.shape[1]))
+    engine = Engine(preset_config(name, streams))
     if (engine.config.inference.person_segmenter
             and not engine.runner.trained_standin.get("seg")):
         fail(f"preset [{name}]: the trained segmenter stand-in did not load")
-    params = template_heads(engine.params, keys=("flm_lm",))
-    return drive(name, engine, params, clip, dev, card, profile_dir)
+    keys = [k for k in ("flm_lm", "hand_lm") if k in engine.params]
+    return engine, template_heads(engine.params, keys=keys)
+
+
+def preset(name: str, clip, dev, card: str, profile_dir: str | None = None):
+    """Drive a preset at the flagship scale over ``clip``; returns the
+    launch counts."""
+    engine, params = preset_engine(name, clip.shape[1])
+    return drive(name, engine, params, clip, dev, card, profile_dir)[0]
+
+
+def multistream(clip, dev, card: str, profile_dir: str | None = None,
+                lagged: int = 0):
+    """Drive ``preset_config("multistream")`` over ``clip`` (person scenes),
+    each step followed by ``Drawer.compose``: of every stream (the JAX
+    bench's ``render=True``), or with ``lagged`` = F through
+    ``batch_step_lagged`` in windows of F frames, of stream 0 alone (its
+    display point).  The face ROI's BPM is held to 72 on the tracked
+    streams; the palm ROI lies on clothes, where its skin-weighted sample
+    follows the weights, so its BPM and the PTT are logged (phase 4 holds
+    them to the CPU).  Then the outputs' shapes, the forehead ROI's colour
+    on the composed frames and one headless ``present``.  Returns the
+    launch counts."""
+    from bp_from_video_tpu_torch.models.runner import map_leaves
+    from bp_from_video_tpu_torch.render.drawer import Drawer
+    engine, params = preset_engine("multistream", clip.shape[1])
+    drawer = Drawer(engine.config, show=False)
+    if lagged:
+        path = "multistream, lagged"
+
+        def render(frames, out):
+            return drawer.compose(frames[:1], map_leaves(lambda a: a[:1], out))
+    else:
+        path = "multistream"
+
+        def render(frames, out):
+            return drawer.compose(frames, out)
+    launches, out = drive(path, engine, params, clip, dev, card, profile_dir,
+                          render=render, lagged=lagged, held=(0,))
+    check_composed(path, drawer, clip[-1], out, render)
+    return launches
+
+
+def check_composed(path: str, drawer, frames, out, render) -> None:
+    """The standalone face detector's output shapes; on the composed frames
+    of the tracked streams, the forehead ROI's outline (where no later
+    layer or the HUD covers it) carries its colour blended with the frame
+    as the alpha blend does; one headless ``present``."""
+    from bp_from_video_tpu_torch.render import overlay
+    s, h, w = out.rois.shape[0], frames.shape[-2], frames.shape[-1]
+    fd = out.models.face_detector
+    shapes = (tuple(fd.bbox.shape), tuple(fd.points.shape),
+              tuple(fd.count.shape))
+    if shapes != ((s, 4, 4), (s, 4, 6, 2), (s,)):
+        fail(f"[{path}]: face detector output shapes {shapes}")
+    img, plot, packed = render(frames, out)
+    k = img.shape[0]
+    tracked = (torch.arange(s, device=frames.device) < s // 2)[:k]
+    rois = out.rois[:k]
+    outline = overlay.rect_mask(rois[:, 0:1, 2:6], h, w) > 0.5
+    later = (overlay.rect_mask(rois[:, 1:2, 2:6], h, w)
+             + overlay.cross_mask(rois[:, 1:2, :2], h, w)) > 0.5
+    lines, slots = drawer._hud["idx"].shape
+    hud = torch.zeros((h, w), dtype=torch.bool, device=frames.device)
+    hud[:30 + 30 * lines, :15 + slots * 12] = True
+    pick = outline & ~later & ~hud & tracked[:, None, None]
+    color = torch.tensor(drawer.sig_colors[0], dtype=torch.float32,
+                         device=frames.device)
+    want = torch.round(0.75 * color + 0.25 * frames[:k].permute(0, 2, 3, 1)
+                       .float()).to(torch.uint8)
+    per_stream = pick.sum((1, 2)).tolist()
+    ok = bool((img[pick] == want[pick]).all())
+    log(f"[{path}] composed {k} stream(s): frames {tuple(img.shape)}, plots "
+        f"{tuple(plot.shape)}, packed {tuple(packed.shape)}; forehead ROI "
+        f"outline pixels checked on tracked streams {per_stream}, all carry "
+        f"its colour {drawer.sig_colors[0]} blended: {ok}")
+    if not ok or min(n for n, t in zip(per_stream, tracked.tolist())
+                     if t) == 0:
+        fail(f"[{path}]: the forehead ROI's outline is not drawn in its "
+             "colour on every tracked stream")
+    rc = drawer.present(img[0], plot[0], packed[0])
+    log(f"[{path}] present (headless, OpenCV "
+        f"{'absent' if drawer.cv2 is None else 'present'}): returned {rc}, "
+        f"last frame {drawer.last_frame.shape}, last plot "
+        f"{drawer.last_plot.shape}")
+    if rc != -1 or drawer.last_frame.shape != (h, w, 3):
+        fail(f"[{path}]: headless present failed")
 
 
 def drive(path: str, engine, params, clip, dev, card: str,
-          profile_dir: str | None = None, check_signal: bool = True):
-    """Run ``engine.batch_step`` over ``clip`` (half the streams start
-    tracked) with the launch counters set to 0 just before and read just
-    after, check the counts against ``PER_STEP[path]`` and, with
-    ``check_signal``, BPM (and PTT where there are two ROIs) on the tracked
-    streams; returns the counts."""
-    steps, s = clip.shape[0], clip.shape[1]
+          profile_dir: str | None = None, check_signal: bool = True,
+          render=None, lagged: int = 0, held=None):
+    """Run ``engine`` over ``clip`` (half the streams start tracked; with
+    ``lagged`` = F in windows of F frames; ``render`` after each step) with
+    the launch counters set to 0 just before and read just after, check the
+    counts against ``PER_STEP[path]`` and, with ``check_signal``, BPM of
+    the ROIs ``held`` (default all; PTT too where every ROI of two or more
+    is held) on the tracked streams; returns the counts and the last
+    step's outputs."""
+    f = lagged or 1
+    steps, s = clip.shape[0] // f, clip.shape[1]
     cfg = engine.config
     h, w = cfg.frame_height, cfg.frame_width
     ns = cfg.signal.num_signals
-    tag = f"{'preset' if path in PRESETS else 'flagship'} [{path}]"
+    held = tuple(range(ns)) if held is None else held
+    tag = (f"{'preset' if path.split(',')[0] in PRESETS else 'flagship'} "
+           f"[{path}]")
     tracked = torch.arange(s, device=dev) < s // 2
     state = tracked_state(engine, h, w, tracked)
     warm = min(10, steps // 2)
+    kw = dict(render=render, lagged=lagged)
     zero_counters()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    state, _ = run_clip(engine, params, state, clip[:warm])
+    state, _ = run_clip(engine, params, state, clip[:warm * f], **kw)
     torch.cuda.synchronize()
     t_mid = time.perf_counter()
-    state, out = run_clip(engine, params, state, clip[warm:], t0=warm)
+    state, out = run_clip(engine, params, state, clip[warm * f:steps * f],
+                          t0=warm * f, **kw)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = {k: fn.launches for k, fn in counters().items()}
@@ -1008,8 +1140,9 @@ def drive(path: str, engine, params, clip, dev, card: str,
              "step as expected")
     launches["roi_samples weighted"] = weighted
     sps = (steps - warm) / (t_end - t_mid)
-    log(f"{tag} S={s} {h}x{w} bf16 on {card}: first {warm} steps "
-        f"{t_mid - t:.3f} s; steady {sps:.3f} steps/s = {sps * s:.1f} "
+    log(f"{tag} S={s} {h}x{w} bf16{f' F={f}' if lagged else ''}"
+        f"{' composed' if render else ''} on {card}: first {warm} steps "
+        f"{t_mid - t:.3f} s; steady {sps:.3f} steps/s = {sps * s * f:.1f} "
         f"frames/s ({1e3 / sps:.3f} ms/step, host clock, synchronized)")
     n_track = int(state.track.face_tracking.sum())
     if n_track < int(tracked.sum()):
@@ -1020,26 +1153,31 @@ def drive(path: str, engine, params, clip, dev, card: str,
         tr = tracked.cpu()
         if cfg.inference.person_segmenter:
             log_roi_skin(out, tag, tr)
-        if not bool(torch.isfinite(bpm[tr]).all()):
+        hb = bpm[tr][:, list(held)]
+        if not bool(torch.isfinite(hb).all()):
             fail(f"{tag}: BPM not finite on the tracked streams")
         # The clip pulses at 72 BPM, the palm 3 frames (100 ms) after the
         # face.
-        if not bool(((bpm[tr] - 72).abs() <= 6).all()):
-            fail(f"{tag}: BPM {bpm[tr].tolist()} not near 72")
-        if ns > 1 and not (
+        if not bool(((hb - 72).abs() <= 6).all()):
+            fail(f"{tag}: BPM {hb.tolist()} not near 72")
+        if ns > 1 and len(held) == ns and not (
                 bool(torch.isfinite(ptt[tr]).all())
                 and bool(((ptt[tr] + 100).abs() <= 1000.0 / 30.0).all())):
             fail(f"{tag}: PTT {ptt[tr].tolist()} not near -100 ms")
         if tuple(out.proc_y.shape) != (s, ns, cfg.signal.signal_max_samples):
             fail(f"{tag}: proc_y shape {tuple(out.proc_y.shape)}")
+        for r in range(ns):
+            log(f"{tag} ROI {r} ({'held to 72' if r in held else 'logged'}) "
+                f"BPM on tracked streams: {bpm[tr][:, r].tolist()}")
         log(f"{tag} outputs on tracked streams: BPM "
-            f"{sorted(set(bpm[tr].flatten().tolist()))}, PTT ms "
+            f"{sorted(set(hb.flatten().tolist()))} (held ROIs), PTT ms "
             f"{sorted(set(ptt[tr].flatten().tolist()))}; streams with "
             f"finite BPM {n_fin}/{s}; tracking face {n_track}/{s}; proc_y "
             f"{tuple(out.proc_y.shape)}")
     if profile_dir:
-        profile(engine, params, state, clip[:10], steps, profile_dir, path)
-    return launches
+        profile(engine, params, state, clip[:10 * f], steps * f, profile_dir,
+                path, **kw)
+    return launches, out
 
 
 def log_roi_skin(out, tag: str, tracked) -> None:
@@ -1100,13 +1238,16 @@ def lone_unit_graph(dev, s: int = 64):
     return launches
 
 
-def profile(engine, params, state, clip, t0, out_dir, path):
-    """Trace all but the last two steps of ``clip`` through the engine:
-    device time by kernel (and copy) and the device's busy share of the
-    wall time; then one step traced with its operators' shapes (kept out
-    of the timed window: recording them costs host time), to find copies
-    of frame-sized f32 maps; then the host sync points of the last step
-    (CUDA sync debug mode)."""
+def profile(engine, params, state, clip, t0, out_dir, path, render=None,
+            lagged: int = 0):
+    """Trace all but the last two steps of ``clip`` through the engine (as
+    ``run_clip`` steps it): device time by kernel (and copy) and the
+    device's busy share of the wall time; with ``render``, then the compose
+    alone on the last step's outputs, its device time against the step's;
+    then one step traced with its operators' shapes (kept out of the timed
+    window: recording them costs host time), to find copies of frame-sized
+    f32 maps; then the host sync points of the last step (CUDA sync debug
+    mode)."""
     import collections
     import warnings
 
@@ -1114,19 +1255,24 @@ def profile(engine, params, state, clip, t0, out_dir, path):
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as prof
     os.makedirs(out_dir, exist_ok=True)
-    n = clip.shape[0] - 2
+    f = lagged or 1
+    n = clip.shape[0] // f - 2
+    kw = dict(render=render, lagged=lagged)
+    name = path.replace(", ", "_").replace(" ", "_")
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def device_events(p):
+        evs = [e for e in p.key_averages() if e.device_type == DeviceType.CUDA]
+        evs.sort(key=lambda e: -e.self_device_time_total)
+        return evs, sum(e.self_device_time_total for e in evs) / 1e6
     torch.cuda.synchronize()
     with prof(activities=acts) as p:
         t = time.perf_counter()
-        state, _ = run_clip(engine, params, state, clip[:n], t0=t0)
+        state, out = run_clip(engine, params, state, clip[:n * f], t0=t0, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    p.export_chrome_trace(os.path.join(out_dir,
-                                       f"flagship_{path}_trace.json"))
-    evs = [e for e in p.key_averages() if e.device_type == DeviceType.CUDA]
-    evs.sort(key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in evs) / 1e6
+    p.export_chrome_trace(os.path.join(out_dir, f"flagship_{name}_trace.json"))
+    evs, busy = device_events(p)
     launches = sum(e.count for e in evs) / n
     log(f"profile [{path}]: {n} steps, wall {wall * 1e3:.3f} ms (profiled), "
         f"device time {busy * 1e3:.3f} ms, busy share {busy / wall:.4f}, "
@@ -1134,17 +1280,32 @@ def profile(engine, params, state, clip, t0, out_dir, path):
     for e in evs[:20]:
         log(f"  {e.self_device_time_total / 1e3 / n:9.4f} ms/step "
             f"x{e.count / n:6.1f}  {e.key[:100]}")
+    if render is not None:
+        last = clip[n * f - 1]
+        with prof(activities=acts) as p:
+            for _ in range(n):
+                render(last, out)
+            torch.cuda.synchronize()
+        revs, rbusy = device_events(p)
+        log(f"profile [{path}]: the compose alone, {n} calls: "
+            f"{rbusy / n * 1e3:.3f} ms device time and "
+            f"{sum(e.count for e in revs) / n:.1f} kernels and copies a "
+            f"call, {rbusy / busy:.4f} of the composed step's device time")
+        for e in revs[:8]:
+            log(f"  {e.self_device_time_total / 1e3 / n:9.4f} ms/call "
+                f"x{e.count / n:6.1f}  {e.key[:100]}")
     # Copies of a frame-sized f32 map: a copy of the skin weights, which K4
     # reads in place, would be one (78.6 MB at the flagship).
     with prof(activities=acts, record_shapes=True) as p:
-        state, _ = run_clip(engine, params, state, clip[n:n + 1], t0=t0 + n)
+        state, _ = run_clip(engine, params, state, clip[n * f:(n + 1) * f],
+                            t0=t0 + n * f, **kw)
         torch.cuda.synchronize()
-    trace = os.path.join(out_dir, f"flagship_{path}_shapes.json")
+    trace = os.path.join(out_dir, f"flagship_{name}_shapes.json")
     p.export_chrome_trace(trace)
     cfg = engine.config
-    plane = [cfg.num_streams, cfg.frame_height, cfg.frame_width]
-    with open(trace) as f:
-        copies = [e.get("args", {}) for e in json.load(f)["traceEvents"]
+    plane = [cfg.num_streams * f, cfg.frame_height, cfg.frame_width]
+    with open(trace) as fh:
+        copies = [e.get("args", {}) for e in json.load(fh)["traceEvents"]
                   if e.get("name") == "aten::copy_"]
     if not any("Input Dims" in a and "Input type" in a for a in copies):
         fail(f"profile [{path}]: the trace records no copy's shapes")
@@ -1157,7 +1318,8 @@ def profile(engine, params, state, clip, t0, out_dir, path):
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        run_clip(engine, params, state, clip[n + 1:], t0=t0 + n + 1)
+        run_clip(engine, params, state, clip[(n + 1) * f:(n + 2) * f],
+                 t0=t0 + (n + 1) * f, **kw)
         torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("default")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1170,10 +1332,11 @@ def profile(engine, params, state, clip, t0, out_dir, path):
 
 def card_vs_cpu(steps: int, dev):
     """A small f32 config on the card (kernels) and on the CPU (plain
-    versions) over one clip (person scenes for ``segmenter_fir``): with
-    stand-in nets, with the face net a compiled mesh graph of reduced size,
-    every stage fused, and the two presets (BPM equal; the FIR taps
-    designed on each device side by side)."""
+    versions) over one clip (person scenes for ``segmenter_fir`` and
+    ``multistream``): with stand-in nets, with the face net a compiled mesh
+    graph of reduced size, every stage fused, the two single-ROI presets
+    (BPM equal; the FIR taps designed on each device side by side) and
+    ``multistream``, plain and lagged, composed."""
     import dataclasses
 
     from bp_from_video_tpu_torch.config import (EngineConfig,
@@ -1216,7 +1379,7 @@ def card_vs_cpu(steps: int, dev):
                  f"[{name}]")
     person = pulse_clip(steps, s, h, w, split=60, seed=6, device=dev,
                         person=True)
-    for name in PRESETS:
+    for name in PRESETS[:2]:
         cfg = dataclasses.replace(preset_config(name, s, h, w),
                                   compute_dtype="float32")
         on = person if name == "segmenter_fir" else clip
@@ -1250,13 +1413,102 @@ def card_vs_cpu(steps: int, dev):
             f"{taps['cuda'][m]:.9g} / {taps['cpu'][m]:.9g}, first "
             f"{taps['cuda'][0]:.9g} / {taps['cpu'][0]:.9g}; largest "
             f"difference {d:.3g} (taps' largest {taps['cpu'].abs().max():.3g})")
+    for lagged in (0, LAGGED):
+        multistream_card_vs_cpu(person, lagged)
+
+
+def _layer_mask(det, h: int, w: int):
+    """[S, H, W] bool: the pixels a model's boxes and landmarks draw."""
+    from bp_from_video_tpu_torch.render import overlay
+    pts = det.points.reshape(det.points.shape[0], -1, 2)
+    return (overlay.rect_mask(det.bbox, h, w)
+            + overlay.points_mask(pts, h, w)) > 0.5
+
+
+def _images_close(a, b, where=None, frac: float = 1e-3) -> tuple[int, int]:
+    """Pixels of two uint8 image batches that differ (outside ``where``):
+    fails unless each differs by at most 1 and at most ``frac`` of them
+    do (the CPU tests' tolerance).  Returns (differing, largest)."""
+    d = (a.int() - b.int()).abs().amax(-1)
+    if where is not None:
+        d = d.masked_fill(where, 0)
+    n, top = int((d > 0).sum()), int(d.max())
+    if top > 1 or n > frac * d.numel():
+        fail(f"composed images differ at {n} pixels, by up to {top}")
+    return n, top
+
+
+def multistream_card_vs_cpu(clip, lagged: int, devices=("cuda", "cpu")
+                            ) -> None:
+    """``multistream`` at S = 2, 96x128, f32 on the card and on the CPU over
+    ``clip`` (person scenes), plain or lagged, each composed after its last
+    step: BPM equal, PTT within one sample period; each device's compose of
+    the CPU's outputs: frames within the CPU tests' tolerance, plots and
+    packed vectors equal; each device's compose of its own outputs: frames
+    within it where the two devices' hand drawings agree."""
+    import dataclasses
+
+    from bp_from_video_tpu_torch.config import preset_config
+    from bp_from_video_tpu_torch.models.runner import map_leaves
+    from bp_from_video_tpu_torch.render.drawer import Drawer
+    from bp_from_video_tpu_torch.runtime.engine import Engine
+    s, h, w = clip.shape[1], clip.shape[-2], clip.shape[-1]
+    name = "multistream" + (f", lagged F={lagged}" if lagged else "")
+    cfg = dataclasses.replace(preset_config("multistream", s, h, w),
+                              compute_dtype="float32")
+    card, cpu = devices
+    outs, own, drawers = {}, {}, {}
+    for where in devices:
+        eng = Engine(cfg, device=where)
+        params = template_heads(eng.params)
+        st = tracked_state(eng, h, w, torch.ones(s, dtype=torch.bool,
+                                                 device=eng.device))
+        t = time.perf_counter()
+        _, outs[where] = run_clip(eng, params, st, clip.to(where),
+                                  lagged=lagged)
+        drawers[where] = Drawer(cfg, show=False, device=where)
+        own[where] = drawers[where].compose(clip[-1].to(where), outs[where])
+        log(f"small f32 [{name}] S={s} {h}x{w} on {where}: "
+            f"{clip.shape[0]} frames in {time.perf_counter() - t:.2f} s")
+    a, b = outs[card], outs[cpu]
+    bpm_a, bpm_b = a.bpm.cpu(), b.bpm
+    ptt_a, ptt_b = a.ptt.cpu(), b.ptt
+    log(f"card vs CPU [{name}]: BPM {bpm_a.tolist()} / {bpm_b.tolist()}; "
+        f"PTT ms {ptt_a.tolist()} / {ptt_b.tolist()}")
+    if not (bool(torch.isfinite(bpm_a[:, 0]).all())
+            and torch.equal(bpm_a.nan_to_num(-1), bpm_b.nan_to_num(-1))):
+        fail(f"card and CPU BPM differ [{name}]")
+    if not bool((((ptt_a - ptt_b).abs() <= 1000.0 / 30.0)
+                 | (ptt_a.isnan() & ptt_b.isnan())).all()):
+        fail(f"card and CPU PTT differ by more than one sample period "
+             f"[{name}]")
+    cpu_on_card = drawers[card].compose(
+        clip[-1].to(card), map_leaves(lambda x: x.to(card), b))
+    f_img, p_img, packed = (x.cpu() for x in cpu_on_card)
+    n, top = _images_close(f_img, own[cpu][0])
+    if not (torch.equal(p_img, own[cpu][1])
+            and torch.equal(packed.nan_to_num(-7), own[cpu][2].nan_to_num(-7))):
+        fail(f"[{name}] the card's compose of the CPU's outputs: plots or "
+             "packed vectors differ from the CPU's")
+    log(f"[{name}] the CPU's outputs composed on the card and on the CPU: "
+        f"frames differ at {n} pixels (by up to {top}), plots and packed "
+        f"vectors equal")
+    moved = (_layer_mask(map_leaves(lambda x: x.cpu(),
+                                    a.models.hand_landmarker), h, w)
+             ^ _layer_mask(b.models.hand_landmarker, h, w))
+    n, top = _images_close(own[card][0].cpu(), own[cpu][0], moved)
+    log(f"[{name}] each device's compose of its own outputs: frames differ "
+        f"at {n} pixels (by up to {top}) where the hand drawings agree; "
+        f"they are apart at {int(moved.sum())} pixels")
+    if int(moved.sum()) > 1e-2 * moved.numel():
+        fail(f"[{name}] the two devices' hand drawings are far apart")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default=None,
-                    help="directory for torch.profiler traces of the "
-                    "flagship step (stand-in and compiled-mesh paths)")
+                    help="directory for torch.profiler traces of the steps "
+                    "of phases 3, 3b and 3e-3j")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA card (torch.cuda.is_available() is false)")
@@ -1288,9 +1540,18 @@ def main():
     from bp_from_video_tpu_torch.runtime.engine import Engine
     gen = torch.Generator(device=dev).manual_seed(0)
     k5, k6 = check_bottleneck(gen, dev)
+    flag_engine = Engine(flagship_config())
     kernels = [check_multi_crop(gen, dev), check_stem_packed(gen, dev),
-               check_dense_s2_block(Engine(flagship_config()), gen, dev),
+               check_dense_s2_block(flag_engine, gen, dev),
                check_roi(gen, dev), k5, k6]
+    # K1 and K3 at the multistream batches: 8 streams a step, and 32 (8
+    # streams x 4 frames) in the lagged step.
+    for s in (8, 8 * LAGGED):
+        log(f"-- K1 and K3 at {s} streams (multistream"
+            f"{', lagged' if s > 8 else ''})")
+        check_multi_crop(gen, dev, s)
+        check_dense_s2_block(flag_engine, gen, dev, s)
+    del flag_engine
     log("phase 2: every kernel agrees with its plain version")
     torch.cuda.empty_cache()
 
@@ -1301,18 +1562,20 @@ def main():
     torch.cuda.synchronize()
     log(f"flagship clip {tuple(clip.shape)} made on the card in "
         f"{time.perf_counter() - t:.2f} s")
+    total = collections.Counter()
     launches = flagship("standin", clip, dev, card, args.profile)
+    total.update(launches)
     log("phase 3: flagship engine (stand-in nets) ran through K1, K3, K4")
-    mesh = flagship("mesh", clip, dev, card, args.profile)
-    launches["bottleneck_chain"] = mesh["bottleneck_chain"]
+    total.update(flagship("mesh", clip, dev, card, args.profile))
     log("phase 3b: flagship engine with the compiled face mesh ran through "
         "K6")
-    launches["stem_packed"] = flagship("mesh, fused_trunk off", clip, dev,
-                                       card, fused_trunk=False)["stem_packed"]
-    flagship("mesh, every stage fused", clip[:8], dev, card,
-             check_signal=False, fused_bn_min_hw=0)
+    total.update(flagship("mesh, fused_trunk off", clip, dev, card,
+                          fused_trunk=False))
+    total.update(flagship("mesh, every stage fused", clip[:8], dev, card,
+                          check_signal=False, fused_bn_min_hw=0))
     log("phase 3c: both stems ran through K2; every mesh stage ran fused")
-    for phase, name in zip(("3e", "3f"), PRESETS):
+    for phase, name in (("3e", "butter_welch_face"), ("3g", "dual_roi_ls"),
+                        ("3h", "ptt_filtered"), ("3f", "segmenter_fir")):
         if name == "segmenter_fir":
             # The segmenter weights by skin: a clip of person scenes, each
             # stream's face on the face box the trackers hold.
@@ -1322,25 +1585,34 @@ def main():
                               cfg.frame_width, split=300, seed=5, device=dev,
                               person=True)
         n = preset(name, clip, dev, card, args.profile)
-        launches["roi_samples"] += n["roi_samples"]
-        launches["roi_samples weighted"] += n["roi_samples weighted"]
+        total.update(n)
         log(f"phase {phase}: preset {name} ran through K1, K3 and K4"
             f"{' (weighted)' if n['roi_samples weighted'] else ''}")
+    # Multistream: 8 of the person scenes.
+    clip = clip[:, :8].contiguous()
+    torch.cuda.empty_cache()
+    total.update(multistream(clip, dev, card, args.profile))
+    log("phase 3i: multistream (all four models, every stream composed) ran "
+        "through K1, K3 and K4 (weighted)")
+    total.update(multistream(clip, dev, card, args.profile, lagged=LAGGED))
+    log(f"phase 3j: multistream through batch_step_lagged (F={LAGGED}, "
+        "stream 0 composed) ran through K1, K3 and K4 (weighted)")
     del clip
     torch.cuda.empty_cache()
-    launches["bottleneck_s1"] = lone_unit_graph(dev)
+    total["bottleneck_s1"] += lone_unit_graph(dev)
     log("phase 3d: the lone-unit graph ran through K5")
     torch.cuda.empty_cache()
 
     card_vs_cpu(STEPS, dev)
     log("phase 4: card and CPU agree")
+    launches = dict(total)
 
+    # Each kernel's launches summed over every path of phase 3.
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches.get(k["name"], 0)
         for name, entry in k.get("entries", {}).items():
-            entry["launches"] = launches[name]
-    # K4's sample entry: launches on the flagship stand-in path and phases
-    # 3e and 3f, and of those the skin-weighted ones.
+            entry["launches"] = launches.get(name, 0)
+    # K4's sample entry: its launches and, of those, the skin-weighted ones.
     k4 = next(k for k in kernels if "entries" in k)
     k4["entries"]["roi_samples"]["weighted_launches"] = launches[
         "roi_samples weighted"]

@@ -26,6 +26,7 @@ from bp_from_video_tpu_torch.config import (EngineConfig, InferenceConfig,
                                             SignalConfig, flagship_config,
                                             preset_config, preset_configs)
 from bp_from_video_tpu_torch.models.runner import TrackState, map_leaves
+from bp_from_video_tpu_torch.render.drawer import Drawer
 from bp_from_video_tpu_torch.runtime.engine import Engine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -274,17 +275,21 @@ def test_preset_config_matches_bench(name):
 
 
 def test_unported_paths_raise():
-    for kw in (dict(face_detector=True), dict(rotation_mode="shear"),
-               dict(pack_s2d=64), dict(fuse_dw_pw=True)):
+    for kw in (dict(rotation_mode="shear"), dict(pack_s2d=64),
+               dict(fuse_dw_pw=True)):
         cfg = EngineConfig(inference=InferenceConfig(**dict(FUSED, **kw)),
                            frame_height=H, frame_width=W)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+        Drawer(EngineConfig(), show=False, device="cpu",
+               bp_predictor=lambda bpm, ptt: bpm)
 
 
 def test_port_imports_no_jax():
     code = ("import sys\n"
             "import bp_from_video_tpu_torch.runtime.engine\n"
+            "import bp_from_video_tpu_torch.render.drawer\n"
             "import bp_from_video_tpu_torch.convert\n"
             "import bp_from_video_tpu_torch.ops.fir\n"
             "import bp_from_video_tpu_torch.ops.tridiag\n"
@@ -298,7 +303,7 @@ def test_port_imports_no_jax():
             "tc.compile_graph(mg.face_mesh_graph(0, 32, ((8, 4),)), "
             "device='cpu')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'bp_from_video_tpu', 'tensorflow')]\n"
+            "('jax', 'jaxlib', 'bp_from_video_tpu', 'tensorflow', 'cv2')]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
