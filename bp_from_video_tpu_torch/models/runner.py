@@ -176,6 +176,15 @@ def map_leaves(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The tensors of a (nested) NamedTuple in :func:`map_leaves` order:
+    fields in order, depth first (the order ``jax.tree`` flattens the
+    same structure)."""
+    leaves = []
+    map_leaves(leaves.append, tree)
+    return leaves
+
+
 def _to_torch(tree, device, dtype=None):
     """Nested dict/list of numpy arrays -> tensors on ``device`` (float
     leaves cast to ``dtype`` when given)."""

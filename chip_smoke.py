@@ -42,7 +42,22 @@ Phases (each fatal on failure):
    earlier presets and with ``multistream`` (plain and lagged, composed):
    BPM equal, PTT within one sample period, composed images within the
    renderer's tolerance; the FIR taps designed on the card beside those
-   designed on the CPU.
+   designed on the CPU;
+5. the host runtime on the card, through the normal entry points: 8 MJPG
+   files of 260 person scenes at 480x640 written with ``cv2.VideoWriter``
+   (the run fails if it does not open one), then ``cli.main`` in this
+   process with ``--preset multistream --dtype bfloat16 --device cuda
+   --headless`` (the CLI's own config: the kernels on, the fused stem and
+   trunk off): (5a) ``--offline``, (5b) ``--offline --micro-batch 4``, (5c)
+   ``--pipelined --max-frames 120``, (5d) the sequential driver on one
+   file for 120 frames; each logs its host clock, frames/s, every kernel's
+   launches (K1 and K4 must launch once a step), the tracked count, the
+   BPM it read and (5c) the frames the feeder dropped.  BPM is not held:
+   the entry points start untracked, with the random-init face net.
+   (5e) ``process_videos`` of two files at 96x128 f32, plain and with
+   micro-batch 4, on the card and on the CPU, its engine with template
+   heads and a tracked start as in phase 4: BPM equal, PTT within one
+   sample period, ``curr_fs`` equal.
 
 Prints the card's name and power limit first, one JSON line with every
 kernel's numbers before the last line, and as the last line
@@ -56,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import os
@@ -1504,6 +1520,289 @@ def multistream_card_vs_cpu(clip, lagged: int, devices=("cuda", "cpu")
         fail(f"[{name}] the two devices' hand drawings are far apart")
 
 
+# -- phase 5: the host runtime on the card ---------------------------------------
+
+# Phase 5's clips: frames a file, and the entry points' frame cap on the
+# pipelined and sequential drivers.
+RUNTIME_FRAMES = 260
+RUNTIME_MAX = 120
+# The clips' seeds: every file of 5a-5d is made from the first; 5e runs
+# card against CPU on two files of each.
+RUNTIME_SEEDS = (7, 11)
+
+
+@contextlib.contextmanager
+def spy_runtime():
+    """Observe the normal entry points from outside: each engine step (its
+    count, the time of the first, the last state and outputs) and each
+    feeder the pipelined driver builds.  Launch counts stay with the
+    kernels' own counters.  The pipelined driver's readers deliver each
+    file as a camera would (``Paced``), the traffic that driver is for."""
+    import cv2
+
+    from bp_from_video_tpu_torch.drivers import pipelined
+    from bp_from_video_tpu_torch.exceptions import CaptureError
+    from bp_from_video_tpu_torch.runtime.engine import Engine
+    seen = {"steps": 0, "frames": 0, "t_first": None, "state": None,
+            "out": None, "feeders": []}
+    orig = {n: getattr(Engine, n) for n in ("batch_step", "batch_step_lagged")}
+
+    def wrap(fn):
+        def step(self, params, state, frames, ts):
+            if seen["t_first"] is None:
+                seen["t_first"] = time.perf_counter()
+            state, out = fn(self, params, state, frames, ts)
+            seen["steps"] += 1
+            seen["frames"] += ts.numel()
+            seen["state"], seen["out"] = state, out
+            return state, out
+        return step
+
+    class Feeder(pipelined.DeviceFeeder):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen["feeders"].append(self)
+
+    class Paced(pipelined.VideoReader):
+        """A recorded file read as a camera delivers it: frame k no sooner
+        than k / fps after the first read, the file from its start again
+        after its last frame, timestamps running on."""
+
+        def read_frame(self):
+            fps = self.cap.get(cv2.CAP_PROP_FPS) or 30.0
+            if not hasattr(self, "t0"):
+                self.t0, self.k = time.perf_counter(), 0
+                self.offset, self.last = 0.0, float("nan")
+            wait = self.t0 + self.k / fps - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            self.k += 1
+            try:
+                fd = super().read_frame()
+            except CaptureError:
+                self.cap.set(cv2.CAP_PROP_POS_FRAMES, 0)
+                self.offset = self.last + 1.0 / fps
+                fd = super().read_frame()
+            fd.timestamp += self.offset
+            fd.sampling_freq = 1.0 / (fd.timestamp - self.last)
+            self.last = fd.timestamp
+            return fd
+
+    orig_mods = {"DeviceFeeder": pipelined.DeviceFeeder,
+                 "VideoReader": pipelined.VideoReader}
+    for n, fn in orig.items():
+        setattr(Engine, n, wrap(fn))
+    pipelined.DeviceFeeder, pipelined.VideoReader = Feeder, Paced
+    try:
+        yield seen
+    finally:
+        for n, fn in orig.items():
+            setattr(Engine, n, fn)
+        for n, cls in orig_mods.items():
+            setattr(pipelined, n, cls)
+
+
+def write_runtime_clips(dirname: str, dev, s: int, h: int, w: int,
+                        steps: int, seed: int = 7) -> list[str]:
+    """``s`` MJPG files of ``steps`` person scenes pulsing at 72 BPM (the
+    lower part 3 frames late), made on the card from ``seed``, written as
+    BGR; fails unless ``cv2.VideoWriter`` opens an MJPG ``.avi``."""
+    import cv2
+    clip = pulse_clip(steps, s, h, w, split=300 * h // 480, seed=seed,
+                      device=dev, person=True)
+    paths = []
+    for i in range(s):
+        path = os.path.join(dirname, f"seed{seed}_stream{i}.avi")
+        wr = cv2.VideoWriter(path, cv2.VideoWriter.fourcc(*"MJPG"), 30.0,
+                             (w, h))
+        if not wr.isOpened():
+            fail(f"cv2.VideoWriter (OpenCV {cv2.__version__}) does not "
+                 "open an MJPG .avi")
+        for f in clip[:, i].flip(1).permute(0, 2, 3, 1).cpu().numpy():
+            wr.write(f)
+        wr.release()
+        paths.append(path)
+    return paths
+
+
+def run_cli(tag: str, argv: list[str], card: str, steps: int):
+    """``cli.main(argv)`` in this process with the kernels' counters set to
+    0 just before and read just after: logs the host clock (the whole call:
+    decode, engine build, steps) and frames/s, the drivers' stage times,
+    every kernel's launches, the tracked count and the BPM of the last
+    step, and for the pipelined driver the frames its feeder dropped; fails
+    unless the call ran ``steps`` engine steps and K1 and K4 (its sample
+    entry, skin-weighted: the segmenter runs) launched once a step.
+    Returns the launch counts."""
+    from bp_from_video_tpu_torch import cli
+    from bp_from_video_tpu_torch.utils.profiling import profiler
+    profiler.clear()
+    with spy_runtime() as seen:
+        zero_counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    launches = {k: fn.launches for k, fn in counters().items()}
+    launches["roi_samples weighted"] = counters()["roi_samples"
+                                                  ].weighted_launches
+    n, frames = seen["steps"], seen["frames"]
+    shown = " ".join(os.path.basename(a) if os.sep in a else a for a in argv)
+    log(f"[{tag}] cli.main({shown}) returned {rc}")
+    log(f"[{tag}] {n} engine steps, {frames} frames on {card}: host clock "
+        f"{t_end - t:.3f} s = {frames / (t_end - t):.1f} frames/s end to end "
+        f"(decode and engine build {seen['t_first'] - t:.3f} s; first step "
+        f"to return {t_end - seen['t_first']:.3f} s = "
+        f"{frames / (t_end - seen['t_first']):.1f} frames/s)")
+    for name, st in profiler.stats.items():
+        log(f"[{tag}] stage {name}: {st.calls} calls, mean "
+            f"{st.total / st.calls * 1e3:.3f} ms, min {st.best * 1e3:.3f}, "
+            f"max {st.worst * 1e3:.3f}")
+    log(f"[{tag}] launches: {launches}")
+    if rc != 0 or n != steps:
+        fail(f"[{tag}] the entry point ran {n} engine steps, not {steps}")
+    if any(launches[k] != n for k in ("multi_crop", "roi_samples",
+                                      "roi_samples weighted")):
+        fail(f"[{tag}] K1 and K4 did not launch once a step ({n} steps)")
+    tr = seen["state"].track
+    out = seen["out"]
+    log(f"[{tag}] last step: faces tracked {int(tr.face_tracking.sum())}/"
+        f"{tr.face_tracking.numel()}, hands tracked "
+        f"{int(tr.hand_tracking.sum())}/{tr.hand_tracking.numel()}; BPM "
+        f"{out.bpm.float().cpu().tolist()}, PTT ms "
+        f"{out.ptt.float().cpu().tolist()}")
+    for f in seen["feeders"]:
+        log(f"[{tag}] feeder dropped {f.dropped.tolist()} frames a stream "
+            f"({int(f.dropped.sum())} of {int(f._seq.sum())} captured, "
+            f"{f._seq.sum() / f._seq.size / (t_end - seen['t_first']):.1f} "
+            "frames/s a stream from the first step)")
+    return launches
+
+
+def runtime_card_vs_cpu(paths: list[str], micro_batch: int | None,
+                        seed: int, devices=("cuda", "cpu")) -> None:
+    """``process_videos`` of two files at 96x128 (resized on the host),
+    f32, the ``multistream`` preset, on the card and on the CPU, its engine
+    given template heads and a tracked start as in phase 4 (so the ROIs do
+    not depend on roundoff in the nets: with free nets f32 convolutions
+    summed in another order move a landmark, and a ROI, by a pixel): BPM
+    equal (NaN pattern included), PTT within one sample period,
+    ``curr_fs`` and the timestamps equal.  Per-frame rows are held once
+    settled: over the first few samples the periodogram is nearly flat and
+    roundoff picks its peak, and the BPM of a row is the mean of the peak
+    ring (``peak_max_samples`` rows), so BPM is held from the first row
+    whose ring holds only peaks of row 10 on.  The micro-batched run's
+    rows are windows, whose first analysis already sees F samples: every
+    row is held.  The rows that differ are logged."""
+    import dataclasses
+
+    from bp_from_video_tpu_torch.config import preset_config
+    from bp_from_video_tpu_torch.runtime import offline
+
+    class Held(offline.MultiStreamEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.params = self.engine.params = template_heads(self.params)
+
+        def init_states(self):
+            cfg = self.config
+            return tracked_state(self.engine, cfg.frame_height,
+                                 cfg.frame_width,
+                                 torch.ones(cfg.num_streams, dtype=torch.bool,
+                                            device=self.device))
+
+    cfg = dataclasses.replace(preset_config("multistream", 2, 96, 128),
+                              compute_dtype="float32")
+    name = (f"process_videos seed {seed}"
+            f"{f', micro-batch {micro_batch}' if micro_batch else ''}")
+    outs = {}
+    free = offline.MultiStreamEngine
+    offline.MultiStreamEngine = Held
+    try:
+        for where in devices:
+            t = time.perf_counter()
+            outs[where] = offline.process_videos(
+                paths, cfg, target_res=(96, 128), micro_batch=micro_batch,
+                device=where)
+            log(f"[5e {name}] S=2 96x128 f32 on {where}: "
+                f"{time.perf_counter() - t:.2f} s")
+    finally:
+        offline.MultiStreamEngine = free
+    (a, ta), (b, tb) = (outs[d] for d in devices)
+    settled = 0 if micro_batch else 10 + cfg.signal.peak_max_samples - 1
+    same = np.isclose(a.bpm, b.bpm, rtol=0, atol=0, equal_nan=True).all(
+        (1, 2))
+    differ = np.flatnonzero(~same).tolist()
+    ptt_ok = (np.abs(a.ptt - b.ptt) <= 1000.0 / 30.0) | (
+        np.isnan(a.ptt) & np.isnan(b.ptt))
+    fs_same = np.array_equal(a.curr_fs, b.curr_fs, equal_nan=True)
+    log(f"[5e {name}] card vs CPU: {a.bpm.shape[0]} rows; BPM finite "
+        f"{int(np.isfinite(a.bpm).sum())}/{a.bpm.size}, last row "
+        f"{a.bpm[-1].tolist()} / {b.bpm[-1].tolist()}; rows whose BPM "
+        f"differs {differ} (held from row {settled}); PTT within a sample "
+        f"period {int(ptt_ok.sum())}/{ptt_ok.size}, last row "
+        f"{a.ptt[-1].tolist()} / {b.ptt[-1].tolist()}; curr_fs equal "
+        f"{fs_same}, timestamps equal {np.array_equal(ta, tb)}")
+    if not (same[settled:].all() and ptt_ok.all() and fs_same
+            and np.isfinite(a.bpm[-1, :, 0]).all()
+            and np.array_equal(ta, tb)):
+        fail(f"[5e {name}] the card's outputs differ from the CPU's")
+
+
+def host_runtime(dev, card: str, s: int = 8, h: int = 480, w: int = 640,
+                 frames: int = RUNTIME_FRAMES) -> collections.Counter:
+    """Phase 5: the normal entry points on the card (``cli.main`` in this
+    process, ``--preset multistream --dtype bfloat16 --device cuda``) over
+    ``s`` recorded files of ``frames`` person scenes at ``h``x``w``: (5a)
+    ``--offline``, (5b) ``--offline --micro-batch 4``, (5c) ``--pipelined``
+    headless, its readers paced at the files' frame rate, (5d) the
+    sequential driver on one file, headless; (5e) ``process_videos`` card
+    against CPU on two clips of each of ``RUNTIME_SEEDS``.  The CLI's config is its own
+    mapping: the kernels on (a CUDA device), the fused stem and trunk at
+    their defaults (off).  BPM is logged, not held: the face net is a
+    random-init stand-in and the entry points start untracked.  Returns
+    the launch counts of 5a-5d."""
+    import shutil
+    import tempfile
+
+    import cv2
+    log(f"[5] OpenCV {cv2.__version__}")
+    total = collections.Counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+    try:
+        t = time.perf_counter()
+        paths = write_runtime_clips(tmp, dev, s, h, w, frames,
+                                    RUNTIME_SEEDS[0])
+        torch.cuda.empty_cache()
+        log(f"[5] cv2.VideoWriter opened an MJPG .avi: wrote {s} files of "
+            f"{frames} frames {h}x{w} in {time.perf_counter() - t:.2f} s "
+            f"({sum(os.path.getsize(p) for p in paths) / 1e6:.1f} MB)")
+        base = ["--preset", "multistream", "--dtype", "bfloat16",
+                "--device", dev.type, "--headless"]
+        for tag, argv, steps in (
+                ("5a offline", ["--source", *paths, "--offline"], frames),
+                ("5b offline, micro-batch 4",
+                 ["--source", *paths, "--offline", "--micro-batch", "4"],
+                 -(-frames // 4)),
+                ("5c pipelined, paced at the files' 30 fps",
+                 ["--source", *paths, "--pipelined", "--max-frames",
+                  str(RUNTIME_MAX)], RUNTIME_MAX),
+                ("5d sequential", ["--source", paths[0], "--max-frames",
+                                   str(RUNTIME_MAX)], RUNTIME_MAX)):
+            total.update(run_cli(tag, argv + base, card, steps))
+            torch.cuda.empty_cache()
+        # 5e on two of the files, then on two files of a second seed.
+        for seed in RUNTIME_SEEDS:
+            two = (paths[:2] if seed == RUNTIME_SEEDS[0] else
+                   write_runtime_clips(tmp, dev, 2, h, w, frames, seed))
+            for mb in (None, 4):
+                runtime_card_vs_cpu(two, mb, seed, (dev.type, "cpu"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default=None,
@@ -1605,9 +1904,13 @@ def main():
 
     card_vs_cpu(STEPS, dev)
     log("phase 4: card and CPU agree")
+    total.update(host_runtime(dev, card))
+    log("phase 5: the CLI ran offline, micro-batched, pipelined and "
+        "sequential through K1 and K4 (weighted); process_videos card and "
+        "CPU agree")
     launches = dict(total)
 
-    # Each kernel's launches summed over every path of phase 3.
+    # Each kernel's launches summed over every path of phases 3 and 5.
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
         for name, entry in k.get("entries", {}).items():

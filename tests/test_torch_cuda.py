@@ -1,6 +1,7 @@
 """The port's CUDA kernels K1 (multi_crop), K2 (stem_packed), K3
 (dense_s2_block), K4 (roi_sums and roi_samples), K5 (bottleneck_s1) and K6
-(bottleneck_chain) against their plain PyTorch versions on the card.
+(bottleneck_chain) against their plain PyTorch versions on the card, and
+the device feeder's pinned, asynchronous uploads against its CPU batches.
 
 Every test here needs an NVIDIA card: it carries the ``cuda`` marker and
 skips elsewhere.  The file imports neither JAX nor the reference package
@@ -728,3 +729,70 @@ def test_cuda_chain_and_welch_timestamps_do_not_depend_on_tf32(cuda_device):
     has = sel != 0
     assert bool(torch.isin(sel[has], x).all())
     assert bool(torch.isfinite(runs[1][5]).all())
+
+
+def test_cuda_device_feeder_matches_cpu(cuda_device):
+    """The feeder on the card (pinned host buffers filled in turn, copies
+    without a host wait, each buffer refilled only after its copy's event)
+    gives the batches it gives on the CPU: two streams released a frame at a
+    time, the second skipping every third batch from the third on (it
+    keeps its last frame).
+    Every batch is kept on the card until the end, so a refilled buffer
+    that tore an earlier batch would show."""
+    import threading
+    import time
+
+    from bp_from_video_tpu_torch.exceptions import CaptureError
+    from bp_from_video_tpu_torch.runtime.capture import FrameData
+    from bp_from_video_tpu_torch.runtime.feeder import DeviceFeeder
+
+    h, w, n = 48, 64, 12
+    frames = np.random.default_rng(3).integers(0, 256, (2, n, h, w, 3),
+                                               dtype=np.uint8)
+
+    class Paced:
+        def __init__(self, f):
+            self.f, self.i, self.gate = f, 0, threading.Semaphore(0)
+
+        def read_frame(self):
+            if self.i == len(self.f):
+                raise CaptureError("eof")
+            if not self.gate.acquire(timeout=10.0):
+                raise TimeoutError("never released")
+            self.i += 1
+            return FrameData(self.f[self.i - 1], self.i / 30.0, 30.0, False)
+
+        def cleanup(self):
+            pass
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        readers = [Paced(frames[0]), Paced(frames[1])]
+        feeder = DeviceFeeder(readers, (h, w, 3), device=dev)
+        got, want = [], [0, 0]
+        try:
+            for k in range(n):
+                for i, go in enumerate((True, k % 3 != 2)):
+                    if go:
+                        readers[i].gate.release()
+                        want[i] += 1
+                deadline = time.time() + 10.0
+                while any(f.slot.latest_seq() < c
+                          for f, c in zip(feeder.feeds, want)):
+                    assert time.time() < deadline
+                    time.sleep(0.001)
+                got.append(feeder.get_batch())
+        finally:
+            feeder.cleanup()
+        if dev == "cuda":
+            assert all(t.is_cuda for t in got[0])
+            assert all(b.frames.is_pinned() and b.ts.is_pinned()
+                       for b in feeder._bufs)
+        out[dev] = [[t.cpu() for t in b] for b in got]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+    # Batch 2 repeats stream 1's frame of batch 1; channels flipped to RGB.
+    torch.testing.assert_close(out["cpu"][2][0][1], out["cpu"][1][0][1])
+    torch.testing.assert_close(out["cpu"][1][0][0], torch.from_numpy(
+        frames[0, 1]).permute(2, 0, 1).flip(0))
