@@ -69,8 +69,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--record", default=None, metavar="OUT.npz",
                    help="record per-frame BPM/PTT/fs to an npz file")
     p.add_argument("--bp", default=None, metavar="PREDICTOR.npz",
-                   help="trained BP head: not ported yet (ROADMAP Queue 1 "
-                        "item 14a); raises")
+                   help="trained BP head (python -m "
+                        "bp_from_video_tpu_torch.train --predictor, or the "
+                        "reference package's file): adds the SBP/DBP "
+                        "estimate to the HUD and the printed reports")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs "
                         "the kernels' plain PyTorch versions)")
@@ -92,17 +94,16 @@ def build_parser() -> argparse.ArgumentParser:
                      default=None)
     inf.add_argument("--max-hands", type=int, default=None)
     inf.add_argument("--exact-rotation", action="store_true",
-                     help="exact rotated crops (slower; default uses the "
-                          "axis-aligned MXU fast path)")
+                     help="exact rotated crops (bilinear gathers, slower; "
+                          "default crops the axis-aligned cover)")
     inf.add_argument("--rotation-mode",
                      choices=["cover", "exact", "shear", "hybrid"],
                      default=None,
                      help="landmark crop strategy: axis-aligned cover "
                           "(fastest), exact rotated gather, gather-free "
-                          "FFT-shear rotation (rotated view at matmul+FFT "
-                          "speed), or hybrid (cover while upright, shear "
-                          "past --hybrid-max-tilt); overrides "
-                          "--exact-rotation")
+                          "FFT-shear rotation, or hybrid (cover while "
+                          "upright, shear past --hybrid-max-tilt); "
+                          "overrides --exact-rotation")
     inf.add_argument("--hybrid-max-tilt", type=float, default=None,
                      metavar="DEG",
                      help="hybrid mode's tilt gate in degrees (default 15)")
@@ -238,9 +239,6 @@ def config_from_args(args) -> tuple[EngineConfig, list[CaptureConfig]]:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.bp:
-        raise NotImplementedError(
-            "--bp: the BP head is not ported yet (ROADMAP Queue 1 item 14a)")
     device = resolve_device(args.device)
     cfg, captures = config_from_args(args)
     show = not args.headless
@@ -249,6 +247,11 @@ def main(argv=None) -> int:
     if args.record:
         from bp_from_video_tpu_torch.runtime.recorder import SignalRecorder
         recorder = SignalRecorder(args.record)
+
+    bp_predictor = None
+    if args.bp:
+        from bp_from_video_tpu_torch.train.bp_regressor import load_predictor
+        bp_predictor = load_predictor(args.bp)
 
     if args.offline:
         from bp_from_video_tpu_torch.runtime import offline
@@ -276,6 +279,7 @@ def main(argv=None) -> int:
             recorder.add_clip(rec_ts, rec_out)
             print(f"recorded clip -> {recorder.save()}")
         settled = out.bpm[out.bpm.shape[0] // 2:]
+        settled_ptt = out.ptt[out.ptt.shape[0] // 2:]
         for s in range(settled.shape[1]):
             with np.errstate(all="ignore"), warnings.catch_warnings():
                 warnings.simplefilter("ignore")
@@ -283,6 +287,17 @@ def main(argv=None) -> int:
             print(f"stream {s}: settled mean BPM per ROI:",
                   [round(float(v), 1) if np.isfinite(v) else None
                    for v in means])
+            if bp_predictor is not None:
+                # Per-step estimates over the settled half, then a NaN-safe
+                # mean, as the HUD smooths vitals.
+                bp = bp_predictor(settled[:, s, :], settled_ptt[:, s, :])
+                with np.errstate(all="ignore"), warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    sbp, dbp = np.nanmean(bp, axis=0)
+                print(f"stream {s}: settled mean BP: "
+                      + (f"{sbp:.0f}/{dbp:.0f} mmHg"
+                         if np.isfinite(sbp) and np.isfinite(dbp)
+                         else "NaN"))
         return 0
 
     if args.pipelined or len(captures) > 1:
@@ -290,12 +305,14 @@ def main(argv=None) -> int:
         out = pipelined.run(cfg, captures, asset_dir=args.asset_dir,
                             show=show, max_frames=args.max_frames,
                             display_stream=args.display_stream,
-                            recorder=recorder, device=device)
+                            recorder=recorder, bp_predictor=bp_predictor,
+                            device=device)
     else:
         from bp_from_video_tpu_torch.drivers import sequential
         out = sequential.run(cfg, captures[0], asset_dir=args.asset_dir,
                              show=show, max_frames=args.max_frames,
-                             recorder=recorder, device=device)
+                             recorder=recorder, bp_predictor=bp_predictor,
+                             device=device)
     if recorder is not None and len(recorder):
         print(f"recorded {len(recorder)} frames -> {recorder.save()}")
     if out is not None and args.headless:
@@ -303,6 +320,13 @@ def main(argv=None) -> int:
         ptt = out.ptt.float().cpu().numpy().reshape(-1)
         print("mean BPM per ROI:", [round(float(b), 1) for b in bpm])
         print("mean PTT per pair (ms):", [round(float(t), 1) for t in ptt])
+        if bp_predictor is not None:
+            # The last frame's vitals -> mmHg, a row per stream.
+            bp = bp_predictor(out.bpm.float().cpu().numpy(),
+                              out.ptt.float().cpu().numpy())
+            for row in np.atleast_2d(bp):
+                print("BP estimate:", f"{row[0]:.0f}/{row[1]:.0f} mmHg"
+                      if np.isfinite(row).all() else "NaN")
     return 0
 
 

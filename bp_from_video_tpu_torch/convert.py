@@ -10,6 +10,10 @@ across key for key: the constants ``"{idx}:{name}"`` (integer shape
 operands included, and the stacked ``bnc_*`` weights of the chained
 bottleneck stages), the split-off stem ``__stem__:w/b/alpha`` and its
 packed matrix ``__stem_wmat__``.
+
+``mlp_params_from_numpy`` does the same for the BP head: the reference's
+``MLPParams`` (fetched as numpy) -> this package's, so both compute the
+same head.
 """
 
 from __future__ import annotations
@@ -37,3 +41,15 @@ def params_from_jax(tree, device="cpu"):
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device) for v in tree]
     return _leaf(tree, device)
+
+
+def mlp_params_from_numpy(params, device="cpu"):
+    """The reference's ``MLPParams`` (weights and biases as numpy arrays)
+    -> this package's ``train.bp_regressor.MLPParams`` of f32 tensors on
+    ``device``."""
+    from bp_from_video_tpu_torch.train.bp_regressor import MLPParams
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(device)
+    return MLPParams(tuple(t(w) for w in params.weights),
+                     tuple(t(b) for b in params.biases))

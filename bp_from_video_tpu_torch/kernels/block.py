@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from bp_from_video_tpu_torch.kernels import build
+from bp_from_video_tpu_torch.kernels.warp import pack_s2d
 
 Tensor = torch.Tensor
 
@@ -96,14 +97,6 @@ def prepare_trunk(params: dict) -> tuple[list, tuple]:
         arrays.append({"wmat": wmat, "b": b})
         specs.append((wspec, cin))
     return arrays, tuple(specs)
-
-
-def pack_s2d(x: Tensor) -> Tensor:
-    """[B, C, H, W] -> [B, 4C, H/2, W/2], parity-major planes
-    ((a*2+b)*C + c) — the multi_crop pack=2 channel order."""
-    b, c, hh, ww = x.shape
-    y = x.reshape(b, c, hh // 2, 2, ww // 2, 2).permute(0, 3, 5, 1, 2, 4)
-    return y.reshape(b, 4 * c, hh // 2, ww // 2)
 
 
 # -- K3 -------------------------------------------------------------------------

@@ -75,6 +75,15 @@ def multi_crop_plain(frames_planar: Tensor, rects: Tensor,
     return tuple(outs)
 
 
+def pack_s2d(x: Tensor) -> Tensor:
+    """[B, C, H, W] -> [B, 4C, H/2, W/2], parity-major planes
+    ((a*2+b)*C + c): K1's ``pack=2`` layout, plane (a, b) holding the crop
+    pixels (2i+a, 2j+b)."""
+    b, c, hh, ww = x.shape
+    y = x.reshape(b, c, hh // 2, 2, ww // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    return y.reshape(b, 4 * c, hh // 2, ww // 2)
+
+
 def _packs(pack, n: int) -> tuple[int, ...]:
     packs = (pack,) * n if isinstance(pack, int) else tuple(pack)
     if len(packs) != n:

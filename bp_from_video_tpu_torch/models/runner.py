@@ -16,6 +16,17 @@ are plain separable resamples and the nets run as plain convolutions.  The
 detectors sit behind one batch-level host branch (a device-to-host sync per
 step while any stream needs detection is checked).
 
+Rotation modes (``InferenceConfig.resolved_rotation_mode``): ``cover``
+crops the axis-aligned cover of each tracking rect; ``exact`` and ``shear``
+crop the rotated rect (bilinear gathers; gather-free shears) on the
+per-crop path, with no K1; ``hybrid`` crops the cover while a crop's tilt
+is within ``hybrid_max_tilt_deg`` and the shear view beyond it.  On the K1
+path ``hybrid`` reads the gated counts of both kinds in one host sync a
+step: none gated runs K1 alone; up to ``shear_subbatch`` a kind runs K1
+and shear-crops the gated crops in a compacted sub-batch padded to a power
+of two (``_pow2_ladder``), written over their K1 crops; more runs the
+shear crop for the whole batch.
+
 A landmark net is a compiled TFLite graph when its ``.task`` bundle
 resolves (parsed with TensorFlow) or when ``graphs`` hands the runner an
 already parsed ``tflite_compiler.Graph`` for its key (``"flm_lm"``,
@@ -33,8 +44,8 @@ resolution (``seg_full_masks``), or the skin channel alone at frame
 resolution with the class map at model resolution.
 
 Not ported yet (they raise ``NotImplementedError`` naming their ROADMAP
-Queue 1 item): the rotated crop modes (10c), compiled detectors and a
-compiled segmenter, ``pack_s2d`` and ``fuse_dw_pw`` (10e).
+Queue 1 item): compiled detectors and a compiled segmenter, ``pack_s2d``
+and ``fuse_dw_pw`` (10e).
 """
 
 from __future__ import annotations
@@ -168,21 +179,39 @@ def _clip_floor(pts: Tensor, width: int, height: int) -> Tensor:
 
 
 def map_leaves(fn, tree):
-    """Apply ``fn`` to every tensor of a (nested) NamedTuple state or
-    result; ``map_leaves(lambda x: x[i], state)`` is stream ``i``'s own
-    state, ``map_leaves(lambda x: x[None], one)`` a batch of one."""
+    """Apply ``fn`` to every tensor of a nest of NamedTuples, tuples, lists
+    and dicts (a state, a result, a training state); ``map_leaves(lambda
+    x: x[i], state)`` is stream ``i``'s own state, ``map_leaves(lambda x:
+    x[None], one)`` a batch of one."""
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(map_leaves(fn, t) for t in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_leaves(fn, t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, tree[k]) for k in sorted(tree)}
     return fn(tree)
 
 
 def tree_leaves(tree) -> list:
-    """The tensors of a (nested) NamedTuple in :func:`map_leaves` order:
-    fields in order, depth first (the order ``jax.tree`` flattens the
-    same structure)."""
+    """The tensors of a nest in :func:`map_leaves` order: fields and items
+    in order, dict keys sorted, depth first (the order ``jax.tree``
+    flattens the same structure)."""
     leaves = []
     map_leaves(leaves.append, tree)
     return leaves
+
+
+def _pow2_ladder(m: int) -> list[int]:
+    """[1, 2, 4, ...] capped by (and always ending at) ``m``: the sizes a
+    compacted shear sub-batch is padded to, so a gated count pays for its
+    power of two and the set of shapes stays small."""
+    out = []
+    p = 1
+    while p < m:
+        out.append(p)
+        p *= 2
+    out.append(m)
+    return out
 
 
 def _to_torch(tree, device, dtype=None):
@@ -214,14 +243,13 @@ class InferenceRunner:
         self.h, self.w = frame_height, frame_width
         self.dtype = dtype
         self.device = resolve_device(device)
-        if cfg.resolved_rotation_mode() != "cover":
-            raise NotImplementedError(
-                f"rotation_mode {cfg.resolved_rotation_mode()!r}: not ported "
-                "yet (ROADMAP Queue 1 item 10c)")
         if cfg.pack_s2d or cfg.fuse_dw_pw:
             raise NotImplementedError(
                 "pack_s2d (the packed stem twin, space_to_depth_pack) and "
                 "fuse_dw_pw: not ported (ROADMAP Queue 1 item 10e)")
+        # The hybrid gate in f32, as the reference computes deg2rad.
+        self._gate_rad = float(np.float32(cfg.hybrid_max_tilt_deg)
+                               * np.float32(np.pi / 180))
         self.params: dict[str, Any] = {}
         self.sizes: dict[str, int] = {}
         self._trunk_specs: dict[str, tuple] = {}
@@ -698,27 +726,150 @@ class InferenceRunner:
                                            )[..., :2] / size
         return warp.project_landmarks(pts, warp.arr_rect(rect))
 
-    def _landmarks(self, key: str, params, crops: Tensor | None,
-                   nhwc_at, rects_cover: Tensor) -> tuple[Tensor, Tensor]:
+    def _landmarks(self, key: str, params, crops: Tensor, packed: bool
+                   ) -> tuple[Tensor, Tensor]:
         """Landmark net over a batch of crops -> (raw landmarks [B, 3L],
-        presence f32 [B]).  ``crops``: K1's packed, pre-scaled crops
-        [B, 12, S/2, S/2] (nets with a fused stem), K1's plain pre-scaled
-        crops [B, 3, S, S], or None: crop the cover rects [B, 5] of the
-        frames ``nhwc_at(None)`` here."""
-        if crops is not None and key in self._stem_src:
+        presence f32 [B]).  ``crops``: 2x2-packed, pre-scaled crops
+        [B, 12, S/2, S/2] (``packed``: nets with a fused stem), or planar
+        pre-scaled crops [B, 3, S, S]."""
+        if packed:
             stems = self._fused_stem_batch(key, params, crops)
             if self.cfg.fused_trunk:
                 return self._fused_trunk_batch(key, params, stems)
             return self._landmark_from_stem(key, params, stems)
-        if crops is None:
-            frames = nhwc_at(None)
-            n = rects_cover.shape[0] // frames.shape[0]
-            if n > 1:
-                frames = frames.repeat_interleave(n, 0)
-            crop = warp.crop_rect(frames, warp.arr_rect(rects_cover),
-                                  self.sizes[key])
-            crops = crop.permute(0, 3, 1, 2) / 255.0
         return self._landmark_from_crop(key, params, crops)
+
+    # -- crops ----------------------------------------------------------------
+
+    def _plain_crops(self, key: str, frames: Tensor, raw: Tensor,
+                     cover: Tensor, mode: str) -> tuple[Tensor, Tensor]:
+        """The per-crop path (no K1): crops of the rects ``raw`` [S, 5] or
+        [S, n, 5] (``cover`` their axis-aligned covers) of NHWC frames
+        [S, H, W, 3] in rotation mode ``mode`` -> (f32 planar crops scaled
+        to [0, 1] [S*n, 3, s, s], the rects they project with, shaped as
+        ``raw``).  ``hybrid`` computes the cover and the shear crop of every
+        rect and keeps one per rect by its tilt."""
+        size = self.sizes[key]
+        n = raw.numel() // 5 // frames.shape[0]
+        if n > 1:
+            frames = frames.repeat_interleave(n, 0)
+        rr, cv = raw.reshape(-1, 5), cover.reshape(-1, 5)
+        if mode == "cover":
+            crop, pr = warp.crop_rect(frames, warp.arr_rect(cv), size), cv
+        elif mode == "exact":
+            crop = warp.crop_rect(frames, warp.arr_rect(rr), size,
+                                  exact_rotation=True)
+            pr = rr
+        elif mode == "shear":
+            crop, pr = warp.crop_rect_shear(frames, warp.arr_rect(rr),
+                                            size), rr
+        else:
+            ok = (torch.abs(warp.normalize_radians(rr[:, 4]))
+                  <= self._gate_rad)
+            crop = torch.where(
+                ok[:, None, None, None],
+                warp.crop_rect(frames, warp.arr_rect(cv), size),
+                warp.crop_rect_shear(frames, warp.arr_rect(rr), size))
+            pr = torch.where(ok[:, None], cv, rr)
+        return crop.permute(0, 3, 1, 2) / 255.0, pr.reshape(raw.shape)
+
+    def _shear_crops(self, key: str, frames: Tensor, rects: Tensor
+                     ) -> Tensor:
+        """Shear crops of ``rects`` [k, 5] of NHWC frames [k, H, W, 3] (or
+        of rects [S, n, 5] of frames [S, 1, H, W, 3]) in K1's output form
+        for the same net: planar, scaled to [0, 1], 2x2 packed for a net
+        with a fused stem, in the compute dtype -> [k or S*n, C, s', s']."""
+        crop = warp.crop_rect_shear(frames, warp.arr_rect(rects),
+                                    self.sizes[key])
+        x = crop.flatten(0, -4).permute(0, 3, 1, 2) / 255.0
+        if key in self._stem_src:
+            x = warp_kernel.pack_s2d(x)
+        return x.to(self.dtype)
+
+    def _k1_crops(self, frames_rgb: Tensor, planar_in: bool,
+                  covers: dict) -> dict:
+        """One K1 launch for every cover crop of every stream: {key: crops
+        [S*n, C, s', s']} (pre-scaled, in the compute dtype, packed for a
+        net with a fused stem)."""
+        sizes, packs, parts = [], [], []
+        for key, cov in covers.items():
+            n = cov.shape[1] if cov.ndim == 3 else 1
+            sizes += [self.sizes[key]] * n
+            packs += [2 if key in self._stem_src else 1] * n
+            parts.append(cov.reshape(cov.shape[0], n, 5)[..., :4])
+        planar = (frames_rgb if planar_in
+                  else frames_rgb.permute(0, 3, 1, 2).contiguous())
+        outs = warp_kernel.multi_crop(
+            planar, torch.cat(parts, 1).contiguous(), tuple(sizes),
+            dtype=self.dtype, out_dtype=self.dtype, scale=1.0 / 255.0,
+            pack=tuple(packs))
+        crops, i = {}, 0
+        for key, cov in covers.items():
+            n = cov.shape[1] if cov.ndim == 3 else 1
+            crops[key] = (outs[i] if cov.ndim == 2
+                          else torch.stack(outs[i:i + n], 1).flatten(0, 1))
+            i += n
+        return crops
+
+    def _crop_stage(self, frames_rgb: Tensor, planar_in: bool, nhwc_at,
+                    raws: dict, valid: dict) -> dict:
+        """Every landmark crop of the batch: {key: (crops, projection
+        rects shaped as the key's raw rects, packed)}.  ``raws``: {key:
+        safe tracking rects [S, 5] or [S, n, 5]}; ``valid``: {key: the
+        rects that are live (a stale rect does not count toward the hybrid
+        gate) or None}.  K1 crops the covers when ``use_pallas`` is on, the
+        frames are uint8 and the mode is ``cover`` or ``hybrid``; every
+        other case takes the per-crop path."""
+        mode = self.cfg.resolved_rotation_mode()
+        covers = {k: warp.rect_arr(warp.axis_aligned_cover(warp.arr_rect(r)))
+                  for k, r in raws.items()}
+        if not (self.cfg.use_pallas and frames_rgb.dtype == torch.uint8
+                and mode in ("cover", "hybrid")):
+            return {k: self._plain_crops(k, nhwc_at(None), raws[k],
+                                         covers[k], mode) + (False,)
+                    for k in raws}
+        gated = {}
+        if mode == "hybrid":
+            s = frames_rgb.shape[0]
+            for k, r in raws.items():
+                tilt = torch.abs(warp.normalize_radians(r[..., 4]))
+                if valid[k] is not None:
+                    tilt = torch.where(valid[k], tilt, 0.0)
+                gated[k] = (tilt, tilt > self._gate_rad)
+            # host sync: batch-level gate (both kinds' counts in one read)
+            counts = dict(zip(gated, torch.stack(
+                [g.sum() for _, g in gated.values()]).tolist()))
+            k_sub = self.cfg.shear_subbatch
+            caps = {k: min(k_sub, s * (raws[k].shape[1]
+                                       if raws[k].ndim == 3 else 1))
+                    for k in raws}
+            if (any(counts.values()) if k_sub <= 0 else
+                    any(counts[k] > caps[k] for k in counts)):
+                # Overflow: the shear crop of every rect, both kinds.
+                frames = nhwc_at(None)
+                return {k: (self._shear_crops(
+                    k, frames[:, None] if r.ndim == 3 else frames, r), r,
+                    k in self._stem_src) for k, r in raws.items()}
+            gated = {k: g for k, g in gated.items() if counts[k]}
+        crops = self._k1_crops(frames_rgb, planar_in, covers)
+        prect = dict(covers)
+        for k, (tilt, gate) in gated.items():
+            # The compacted sub-batch: the most tilted crops of this kind,
+            # padded to a power of two; the gated ones overwrite their K1
+            # crops and project with their rotated rects.
+            kk = next(v for v in _pow2_ladder(caps[k]) if v >= counts[k])
+            nk = raws[k].shape[1] if raws[k].ndim == 3 else 1
+            order = torch.argsort(-tilt.reshape(-1), stable=True)[:kk]
+            served = gate.reshape(-1)[order]
+            rr = raws[k].reshape(-1, 5)[order]
+            sub = self._shear_crops(k, nhwc_at(order // nk), rr)
+            base = crops[k]
+            base[order] = torch.where(served[:, None, None, None], sub,
+                                      base[order])
+            pf = prect[k].reshape(-1, 5).clone()
+            pf[order] = torch.where(served[:, None], rr, pf[order])
+            prect[k] = pf.reshape(raws[k].shape)
+        return {k: (crops[k], prect[k], k in self._stem_src) for k in raws}
 
     # -- predict -------------------------------------------------------------
 
@@ -796,46 +947,21 @@ class InferenceRunner:
             else:
                 rects_a, slot_ok = det_palms(nhwc_at(None))
 
-        # --- crop stage: ONE K1 launch for every landmark crop -------------
-        face_raw = face_cover = hand_raw = hand_cover = None
+        # --- crop stage: K1 (one launch for every landmark crop) or the
+        # per-crop path, per rotation mode ----------------------------------
+        raws, valid = {}, {}
         if self.cfg.face_landmarker:
-            face_raw = self._safe_rect(rect_a)                       # [S, 5]
-            face_cover = warp.rect_arr(warp.axis_aligned_cover(
-                warp.arr_rect(face_raw)))
+            raws["flm_lm"], valid["flm_lm"] = self._safe_rect(rect_a), det_ok
         if self.cfg.hand_landmarker:
-            hand_raw = self._safe_rect(rects_a)                  # [S, nh, 5]
-            hand_cover = warp.rect_arr(warp.axis_aligned_cover(
-                warp.arr_rect(hand_raw)))
-        face_crops = hand_crops = None
-        if (self.cfg.use_pallas and frames_rgb.dtype == torch.uint8
-                and (face_cover is not None or hand_cover is not None)):
-            sizes, packs, parts = [], [], []
-            if face_cover is not None:
-                sizes.append(self.sizes["flm_lm"])
-                packs.append(2 if "flm_lm" in self._stem_src else 1)
-                parts.append(face_cover[:, None, :4])
-            if hand_cover is not None:
-                nh = hand_cover.shape[1]
-                sizes += [self.sizes["hand_lm"]] * nh
-                packs += [2 if "hand_lm" in self._stem_src else 1] * nh
-                parts.append(hand_cover[..., :4])
-            planar = (frames_rgb if planar_in
-                      else frames_rgb.permute(0, 3, 1, 2).contiguous())
-            outs = warp_kernel.multi_crop(
-                planar, torch.cat(parts, 1).contiguous(), tuple(sizes),
-                dtype=self.dtype, out_dtype=self.dtype, scale=1.0 / 255.0,
-                pack=tuple(packs))
-            i = 0
-            if face_cover is not None:
-                face_crops = outs[0]
-                i = 1
-            if hand_cover is not None:
-                hand_crops = torch.stack(outs[i:], 1).flatten(0, 1)
+            raws["hand_lm"], valid["hand_lm"] = (self._safe_rect(rects_a),
+                                                 slot_ok)
+        crops = self._crop_stage(frames_rgb, planar_in, nhwc_at, raws, valid)
 
         if self.cfg.face_landmarker:
+            face_crops, face_prect, packed = crops["flm_lm"]
             lm, presences = self._landmarks("flm_lm", params["flm_lm"],
-                                            face_crops, nhwc_at, face_cover)
-            pts = self._project_lm("flm_lm", lm, face_cover)     # [S, L, 2]
+                                            face_crops, packed)
+            pts = self._project_lm("flm_lm", lm, face_prect)     # [S, L, 2]
             next_rects = warp.rect_arr(warp.rect_transform(
                 warp.landmarks_to_rect(pts, *FACE_ROT_LANDMARKS, 0.0),
                 scale=1.5))
@@ -853,12 +979,12 @@ class InferenceRunner:
 
         if self.cfg.hand_landmarker:
             nh = self.cfg.max_hands
-            lm, presences = self._landmarks(
-                "hand_lm", params["hand_lm"], hand_crops, nhwc_at,
-                hand_cover.flatten(0, 1))
+            hand_crops, hand_prect, packed = crops["hand_lm"]
+            lm, presences = self._landmarks("hand_lm", params["hand_lm"],
+                                            hand_crops, packed)
             lm = lm.reshape(s, nh, -1)
             presences = presences.reshape(s, nh)
-            pts = self._project_lm("hand_lm", lm, hand_cover)  # [S,nh,L,2]
+            pts = self._project_lm("hand_lm", lm, hand_prect)  # [S,nh,L,2]
             next_rects = warp.rect_arr(warp.rect_transform(
                 warp.landmarks_to_rect(pts, *HAND_ROT_LANDMARKS,
                                        math.pi / 2),

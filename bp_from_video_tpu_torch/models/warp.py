@@ -2,10 +2,13 @@
 pipelines — the cover-crop part of ``bp_from_video_tpu/models/warp.py``.
 
 A rect is (cx, cy, w, h, rotation) in pixels; every field may carry leading
-batch dims.  Crops sample the axis-aligned cover of the tracking rect as a
-separable bilinear resample (two matmuls), and landmark projection is the
-exact inverse of the crop grid.  The rotated crop modes (``exact``,
-``shear``) are not ported yet (ROADMAP Queue 1 item 10).
+batch dims.  Three crops of a rect, each batched over leading dims:
+the axis-aligned cover as a separable bilinear resample (two matmuls,
+``crop_rect``), the rotated rect as four clamped gathers (``crop_rect`` with
+``exact_rotation``) and the rotated rect with no gather at all
+(``crop_rect_shear``: a separable resample, then three shear passes of
+rDFT phase ramps).  Landmark projection is the exact inverse of the crop
+grid.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from bp_from_video_tpu_torch.ops import dft
 
 Tensor = torch.Tensor
 
@@ -135,17 +140,183 @@ def resample_separable(frame: Tensor, ys: Tensor, xs: Tensor,
 
 def crop_rect(frame: Tensor, r: Rect, out_size: int,
               exact_rotation: bool = False, dtype=torch.float32) -> Tensor:
-    """Bilinear crop of the axis-aligned rect ``r`` (rotation ignored) into
-    [..., out_size, out_size, C], zero outside the frame."""
-    if exact_rotation:
-        raise NotImplementedError(
-            "exact-rotation crops: not ported yet (ROADMAP Queue 1 item 10)")
+    """Bilinear crop of the rect ``r`` into [..., out_size, out_size, C],
+    zero outside the frame.  ``exact_rotation``: the rotated grid, sampled
+    by :func:`bilinear_sample` (f32); otherwise ``r`` is taken as
+    axis-aligned (rotation ignored) and the crop is two matmuls with
+    operands rounded to ``dtype``."""
     s = out_size
     u = (torch.arange(s, dtype=torch.float32, device=frame.device) + 0.5
          ) / s - 0.5
+    if not exact_rotation:
+        ys = r.cy[..., None] + u * r.h[..., None] - 0.5
+        xs = r.cx[..., None] + u * r.w[..., None] - 0.5
+        return resample_separable(frame, ys, xs, dtype)
+    vv, uu = u[:, None], u[None, :]                 # rows, cols
+    cos = torch.cos(r.rotation)[..., None, None]
+    sin = torch.sin(r.rotation)[..., None, None]
+    rw, rh = r.w[..., None, None], r.h[..., None, None]
+    xs = r.cx[..., None, None] + uu * rw * cos - vv * rh * sin
+    ys = r.cy[..., None, None] + uu * rw * sin + vv * rh * cos
+    return bilinear_sample(frame, xs, ys)
+
+
+def bilinear_sample(frame: Tensor, xs: Tensor, ys: Tensor) -> Tensor:
+    """Bilinear sample of ``frame`` [..., H, W, C] at pixel coordinates
+    ``xs``, ``ys`` [..., oh, ow] (integer k = the center of pixel k) ->
+    f32 [..., oh, ow, C], zero outside: four clamped index gathers, each
+    masked to the frame, blended in the reference's order of terms."""
+    h, w, c = frame.shape[-3:]
+    lead = frame.shape[:-3]
+    flat = frame.to(torch.float32).reshape(lead + (h * w, c))
+    x = xs - 0.5
+    y = ys - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+
+    def gather(yi, xi):
+        inb = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
+        n = math.prod(idx.shape[len(lead):])
+        v = torch.gather(flat, -2, idx.reshape(lead + (n, 1)).expand(
+            lead + (n, c)))
+        return torch.where(inb[..., None], v.reshape(idx.shape + (c,)), 0.0)
+
+    a = gather(y0i, x0i)
+    b = gather(y0i, x0i + 1)
+    cc = gather(y0i + 1, x0i)
+    d = gather(y0i + 1, x0i + 1)
+    return (a * (1 - fy) * (1 - fx) + b * (1 - fy) * fx
+            + cc * fy * (1 - fx) + d * fy * fx)
+
+
+_RDFT: dict = {}
+
+
+def _rdft_mats(n: int, device) -> tuple[Tensor, Tensor, Tensor]:
+    """Real-DFT analysis and synthesis matrices for length ``n`` (cached
+    per size and device): ``x @ f`` gives [Re | Im] of the rFFT (n//2+1
+    each), ``[Re' | Im'] @ i`` synthesizes; with the frequencies ``kk``
+    (cycles a sample).  Angles reduced mod n on exact int32 products
+    (``ops/dft._angles``), as the reference builds them."""
+    key = (n, str(device))
+    if key not in _RDFT:
+        nf = n // 2 + 1
+        ang = dft._angles(n, nf, n, device)                     # [n, nf]
+        f = torch.cat([torch.cos(ang), -torch.sin(ang)], 1)     # [n, 2nf]
+        wts = torch.full((nf, 1), 2.0, dtype=torch.float32, device=device)
+        wts[0] = 1.0
+        if n % 2 == 0:
+            wts[-1] = 1.0
+        # Divided by a tensor: IEEE quotients on the card as on the CPU.
+        nt = torch.full((), float(n), dtype=torch.float32, device=device)
+        angt = ang.T
+        i_c = torch.cos(angt) * wts / nt                        # [nf, n]
+        i_s = torch.sin(angt) * wts / nt
+        kk = torch.arange(nf, dtype=torch.float32, device=device) / nt
+        _RDFT[key] = (f, torch.cat([i_c, -i_s], 0), kk)
+    return _RDFT[key]
+
+
+def fract_shift(img: Tensor, shifts: Tensor, axis: int,
+                method: str = "fft") -> Tensor:
+    """Translate ``img`` along ``axis`` by per-slice fractional ``shifts``
+    with rDFT phase ramps (periodic sinc interpolation): out[j] =
+    in[j + shift].  ``shifts`` has ``img``'s shape with ``axis`` removed
+    (or broadcasts to it).  ``method``: 'fft' (``torch.fft``; cuFFT on the
+    card; what the reference runs off the TPU) or 'dft' (two f32 matmuls
+    against the cached trig matrices, the reference's TPU form)."""
+    ax = axis % img.ndim
+    x = img.to(torch.float32).movedim(ax, -1)
+    n = x.shape[-1]
+    sh = shifts.to(torch.float32)[..., None]
+    if method == "fft":
+        k = torch.fft.rfftfreq(n, device=x.device)
+        ang = 2.0 * math.pi * k * sh
+        spec = torch.fft.rfft(x, dim=-1)
+        out = torch.fft.irfft(spec * torch.complex(torch.cos(ang),
+                                                   torch.sin(ang)),
+                              n=n, dim=-1)
+        return out.movedim(-1, ax)
+    if method != "dft":
+        raise ValueError(f"fract_shift: method {method!r}")
+    f_mat, i_mat, kk = _rdft_mats(n, x.device)
+    nf = kk.shape[0]
+    spec = x @ f_mat
+    re, im = spec[..., :nf], spec[..., nf:]
+    ang = 2.0 * math.pi * kk * sh
+    pc, ps = torch.cos(ang), torch.sin(ang)
+    spec2 = torch.cat([re * pc - im * ps, re * ps + im * pc], -1)
+    return (spec2 @ i_mat).movedim(-1, ax)
+
+
+def rotate_shear(img: Tensor, theta: Tensor, r=1.0,
+                 method: str = "fft") -> Tensor:
+    """Rotate ``img`` [..., H, W, C] about its center by ``theta`` [...]
+    (y-down screen convention, as :func:`crop_rect`'s rotated grid) with
+    three shears, each a per-row or per-column :func:`fract_shift`.  ``r``
+    (scalar or [...]) is the grid's row-pitch / column-pitch ratio: with
+    k1 = k3 = -r tan(theta/2) and k2 = sin(theta)/r an anisotropic grid
+    rotates correctly."""
+    h, w = img.shape[-3], img.shape[-2]
+    dev = img.device
+    t = torch.tan(theta / 2.0)
+    k1 = (-r * t)[..., None]
+    k2 = (torch.sin(theta) / r)[..., None]
+    a = torch.arange(h, dtype=torch.float32, device=dev) - (h - 1) / 2.0
+    b = torch.arange(w, dtype=torch.float32, device=dev) - (w - 1) / 2.0
+    x = fract_shift(img, (k1 * a)[..., None], -2, method)
+    x = fract_shift(x, (k2 * b)[..., None], -3, method)
+    return fract_shift(x, (k1 * a)[..., None], -2, method)
+
+
+def quarter_turns(img: Tensor, n4: Tensor) -> Tensor:
+    """``img`` [..., T, T, C] turned by ``n4`` [...] (0-3) quarter turns
+    each (``torch.rot90`` over the two spatial axes), chosen per image on
+    the device."""
+    out = img
+    k = n4[..., None, None, None]
+    for q in (1, 2, 3):
+        out = torch.where(k == q, torch.rot90(img, q, (-3, -2)), out)
+    return out
+
+
+def crop_rect_shear(frame: Tensor, r: Rect, out_size: int,
+                    dtype=torch.float32, expand: float = 1.5,
+                    method: str = "fft") -> Tensor:
+    """Rotated-rect crop with no gather: resample the axis-aligned
+    neighbourhood of the rect center at the rect's pixel pitch (two
+    matmuls, zero outside the frame) on a canvas of ``expand`` x the crop
+    rounded up to a multiple of 64, fold the rotation's quarter turns out
+    as exact index permutations, rotate by the residual (|angle| <= 45
+    degrees) with :func:`rotate_shear`, and take the central window.
+    ``frame`` [..., H, W, C] broadcasts against the rect fields [...] (a
+    frame of shape [S, 1, H, W, C] serves rects [S, n]).  Returns f32
+    [..., out_size, out_size, C].  The sampling grid is :func:`crop_rect`'s
+    rotated grid, so :func:`project_landmarks` with the same rect inverts
+    it; the interpolation is periodic sinc, not bilinear.  Quarter-turn
+    folding is exact for square rects (the trackers' rects are); keep
+    anisotropic rects within 45 degrees."""
+    s = out_size
+    tdim = int(-(-int(s * expand) // 64) * 64)
+    u = (torch.arange(tdim, dtype=torch.float32, device=frame.device)
+         + 0.5 - tdim / 2) / s
     ys = r.cy[..., None] + u * r.h[..., None] - 0.5
     xs = r.cx[..., None] + u * r.w[..., None] - 0.5
-    return resample_separable(frame, ys, xs, dtype)
+    g = resample_separable(frame, ys, xs, dtype)      # [..., t, t, C]
+    rot = normalize_radians(r.rotation)
+    nq = torch.round(rot / (math.pi / 2))
+    theta_r = rot - nq * (math.pi / 2)
+    n4 = torch.remainder(nq.to(torch.int32), 4)
+    g = quarter_turns(g, n4)
+    ratio = torch.where(n4 % 2 == 1, r.w / r.h, r.h / r.w)
+    out = rotate_shear(g, theta_r, ratio, method)
+    o0 = (tdim - s) // 2
+    return out[..., o0:o0 + s, o0:o0 + s, :]
 
 
 def project_landmarks(norm_pts: Tensor, r: Rect) -> Tensor:

@@ -8,10 +8,11 @@ and (``DrawConfig.device_text``) the HUD numbers and plot labels.  It
 returns the frame images, the plot images and one packed vector of every
 number the host needs (HUD values and tick data), reads nothing back and
 copies nothing to the card.  ``present`` is the host half for one stream:
-one download of its two images and its packed vector, host text where the
-card did not stamp it, and the OpenCV windows.  OpenCV is imported when a
-``Drawer`` is built and may be absent: ``present`` then runs headless and
-returns -1.
+one download of its two images and its packed vector, the BP head
+(``bp_predictor``) on the downloaded vitals, host text where the card did
+not stamp it (the BP line always), and the OpenCV windows.  OpenCV is
+imported when a ``Drawer`` is built and may be absent: ``present`` then
+runs headless and returns -1.
 """
 
 from __future__ import annotations
@@ -44,11 +45,9 @@ class Drawer:
     def __init__(self, config: EngineConfig, *, show: bool = True,
                  window_pos: tuple[int, int] = (1080, 0), bp_predictor=None,
                  device=None):
-        if bp_predictor is not None:
-            raise NotImplementedError(
-                "bp_predictor: the BP head is not ported yet (ROADMAP Queue 1 "
-                "item 14)")
         self.config = config
+        self.bp_predictor = bp_predictor
+        self.last_bp: np.ndarray | None = None
         self.draw_cfg = config.draw
         self.device = resolve_device(device)
         self.cv2 = _import_cv2()
@@ -268,8 +267,16 @@ class Drawer:
             put(f"mean_ptt_{p}: {int(ptt)} ms" if np.isfinite(ptt)
                 else "NaN", C.GREEN)
         line += 1
+        if self.bp_predictor is not None:
+            put(self._bp_text(), C.MAGENTA)
+            line += 1
         if calibrating:
             put("calibrating camera", C.RED)
+
+    def _bp_text(self) -> str:
+        sbp, dbp = np.asarray(self.last_bp).reshape(-1)[:2]
+        return (f"bp: {int(sbp)}/{int(dbp)} mmHg"
+                if np.isfinite(sbp) and np.isfinite(dbp) else "bp: NaN")
 
     def _label_plot(self, img, ticks):
         """Tick and corner range labels as host text (reference draw_graph
@@ -296,21 +303,29 @@ class Drawer:
                 calibrating: bool = False) -> int:
         """The host half of the display stage for one stream: download its
         composed images [H, W, 3], [Hp, Wp, 3] and packed vector [P], write
-        the host text (only the calibration banner when the card stamped
-        the rest), blit.  Without OpenCV, or with ``show`` off, it keeps the
-        images in ``last_frame`` / ``last_plot`` and returns -1."""
+        the host text (only the BP line and the calibration banner when the
+        card stamped the rest), blit.  With a ``bp_predictor`` it sets
+        ``last_bp`` from the downloaded vitals.  Without OpenCV, or with
+        ``show`` off, it keeps the images in ``last_frame`` /
+        ``last_plot`` and returns -1."""
         frame_bgr = frame_img.cpu().numpy()[..., ::-1].copy()
         plot_bgr = plot_img.cpu().numpy()[..., ::-1].copy()
         hud, ticks = self._unpack(packed.cpu().numpy())
+        if self.bp_predictor is not None:
+            self.last_bp = self.bp_predictor(hud["bpm"], hud["ptt"])
         if self.cv2 is not None:
             if self.draw_cfg.device_text:
-                # Numbers and labels are stamped already; the banner sits
-                # on the row grid below them (2 fs rows, a blank, the BPM
-                # rows, a blank, the PTT rows, a blank).
+                # Numbers and labels are stamped already; the BP line and
+                # the banner sit on the row grid below them (2 fs rows, a
+                # blank, the BPM rows, a blank, the PTT rows, a blank).
+                line = 5 + len(hud["bpm"]) + len(hud["ptt"])
+                if self.bp_predictor is not None:
+                    self._host_line(frame_bgr, line, self._bp_text(),
+                                    C.MAGENTA)
+                    line += 2
                 if calibrating:
-                    self._host_line(frame_bgr,
-                                    5 + len(hud["bpm"]) + len(hud["ptt"]),
-                                    "calibrating camera", C.RED)
+                    self._host_line(frame_bgr, line, "calibrating camera",
+                                    C.RED)
             else:
                 self._write_info(frame_bgr, hud, calibrating)
                 self._label_plot(plot_bgr, ticks)

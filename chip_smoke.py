@@ -37,12 +37,24 @@ Phases (each fatal on failure):
    step followed by ``Drawer.compose`` of all 8 streams, then one
    headless ``present``; (3j) the same through ``batch_step_lagged`` in
    windows of 4 frames, composing stream 0 alone (the display point);
+   (3k) the rotation modes at the flagship scale (``rotation_modes``): the
+   track pinned to a centered square at 0 or 25 degrees, ``cover``, then
+   ``hybrid`` upright (K1 alone), with every stream tilted (the
+   whole-batch shear), with stream 0 alone tilted (the shear sub-batch),
+   ``shear`` and ``exact``: each path's host clock, CUDA-event time,
+   launches and host syncs a step and BPM; hybrid upright equal to cover,
+   the sub-batch's tilted stream (crops within a bf16 ulp) and untouched
+   streams, the whole-batch shear within a mean 3 px of ``shear``; and the
+   shear crop (cuFFT and DFT matmuls), one shear pass, the exact gather
+   and the BP head timed alone;
 4. run a small f32 config on the card and on the CPU (plain versions) over
    the same clips, with stand-ins, with a compiled face graph, with both
-   earlier presets and with ``multistream`` (plain and lagged, composed):
-   BPM equal, PTT within one sample period, composed images within the
-   renderer's tolerance; the FIR taps designed on the card beside those
-   designed on the CPU;
+   earlier presets, with ``multistream`` (plain and lagged, composed) and
+   through ``exact``, ``shear`` and ``hybrid`` (upright, whole-batch and
+   sub-batch) with the track pinned: BPM equal (from row 10 on the
+   rotation runs), PTT within one sample period, landmarks within 1 px,
+   composed images within the renderer's tolerance; the FIR taps designed
+   on the card beside those designed on the CPU;
 5. the host runtime on the card, through the normal entry points: 8 MJPG
    files of 260 person scenes at 480x640 written with ``cv2.VideoWriter``
    (the run fails if it does not open one), then ``cli.main`` in this
@@ -58,6 +70,16 @@ Phases (each fatal on failure):
    micro-batch 4, on the card and on the CPU, its engine with template
    heads and a tracked start as in phase 4: BPM equal, PTT within one
    sample period, ``curr_fs`` equal.
+6. the BP head: (6a) ``models/bp_e2e_predictor.npz`` through
+   ``Drawer.present`` on the vitals of a composed 3k step, against numpy;
+   (6b) ``bp_from_video_tpu_torch.train`` ``main`` with ``--synthetic
+   4096``: 500 steps on the card (held-out MAE under 5 mmHg, the head
+   exported), 250 + 250 resumed equal to it, the first 20 losses equal to
+   the CPU's at rtol 1e-4; (6c) 5a runs with ``--bp`` set to that head and
+   must report mmHg for every stream; (6d) ``make_e2e_train_step`` over
+   the flagship engine (64 streams) for 30 steps after 10: the engine's
+   BPM and PTT equal to an inference-only run's, losses finite, K1, K3
+   and K4 launched every step.  6a and 6d run after 3k, 6b before 5.
 
 Prints the card's name and power limit first, one JSON line with every
 kernel's numbers before the last line, and as the last line
@@ -76,8 +98,10 @@ import json
 import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -90,6 +114,8 @@ F32_FLOPS = 67e12
 BF16_ULP = 2.0 ** -7          # relative spacing of bf16 values (8-bit mantissa)
 # Engine steps per run: enough to fill the 250-sample signal ring.
 STEPS = 260
+# Steps of phase 4's card-against-CPU runs.
+PHASE4_STEPS = 130
 # The BASELINE presets this port runs end to end on the card: phases 3e,
 # 3f, 3g and 3h (and 4 for the first two); ``multistream`` in 3i and 3j.
 PRESETS = ("butter_welch_face", "segmenter_fir", "dual_roi_ls",
@@ -1254,6 +1280,533 @@ def lone_unit_graph(dev, s: int = 64):
     return launches
 
 
+# -- phase 3k: the rotation modes at full width -------------------------------
+
+# Steps a rotation path runs (the first ``ROT_WARM`` untimed), and the tilt
+# of its tilted streams (the reference bench's ``hybrid_tilt25`` points).
+ROT_STEPS = 60
+ROT_WARM = 5
+ROT_TILT = 25.0
+# Phase 3k's paths: (tag, rotation mode, streams tilted (None: all), tilt,
+# K1 launches a step, K3 launches a step).  ``hybrid`` crops with K1 and
+# runs both nets' stems and trunks through K3 (10 a step), except when more
+# crops of a kind are gated than ``shear_subbatch``: then every crop of the
+# batch is a shear crop (the reference's whole-batch branch, which runs no
+# K1).  ``shear`` and ``exact`` take the per-crop path: no K1, plain nets,
+# no K3.  K4 samples once a step on every path.
+ROT_PATHS = (("cover", "cover", 0, 0.0, 1, 10),
+             ("hybrid upright", "hybrid", None, 0.0, 1, 10),
+             ("hybrid tilt 25", "hybrid", None, ROT_TILT, 0, 10),
+             ("hybrid tilt 25 k1", "hybrid", 1, ROT_TILT, 1, 10),
+             ("shear tilt 25", "shear", None, ROT_TILT, 0, 0),
+             ("exact tilt 25", "exact", None, ROT_TILT, 0, 0))
+
+
+def pinned_track(engine, deg: float, tilted):
+    """Every stream tracking a centered square of side min(h, w) / 3 (face
+    and hands alike), the first ``tilted`` streams (None: all) at ``deg``
+    degrees, the rest upright (the reference bench's pinned rects)."""
+    cfg = engine.config
+    h, w, s = cfg.frame_height, cfg.frame_width, cfg.num_streams
+    nh = cfg.inference.max_hands
+    side = min(h, w) / 3.0
+    rect = torch.tensor([w / 2.0, h / 2.0, side, side, 0.0],
+                        device=engine.device).repeat(s, 1)
+    rect[:s if tilted is None else tilted, 4] = math.radians(deg)
+    tr = engine.init_state().track
+    return tr._replace(
+        face_rect=rect, face_tracking=torch.ones_like(tr.face_tracking),
+        hand_rects=rect[:, None].expand(s, nh, 5).contiguous(),
+        hand_tracking=torch.ones_like(tr.hand_tracking))
+
+
+def count_syncs(fn) -> int:
+    """Host syncs ``fn()`` makes (CUDA sync debug mode; no synchronize of
+    its own inside the window)."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def rotation_run(engine, params, clip, pinned, steps: int,
+                 warm: int = ROT_WARM):
+    """``steps`` engine steps over ``clip`` with the track pinned before
+    each: (per-step landmarks and ROIs on the device, last outputs,
+    host-clock and CUDA-event ms a step over the steps after ``warm``)."""
+    s = clip.shape[1]
+    ts = [torch.full((s,), (i + 1) / 30.0, device=clip.device)
+          for i in range(steps)]
+    state = engine.init_state()
+    rows, out = [], None
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    for i in range(steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            a.record()
+        state, out = engine.batch_step(params, state._replace(track=pinned),
+                                       clip[i], ts[i])
+        m = out.models
+        rows.append((m.face_landmarker.points, m.hand_landmarker.points,
+                     out.rois))
+    b.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t) * 1e3 / (steps - warm)
+    return rows, out, host, a.elapsed_time(b) / (steps - warm), state
+
+
+def rotation_crops(engine, frames, pinned):
+    """The crop stage of one step (``InferenceRunner._crop_stage``) on
+    planar frames [S, 3, H, W] with the track ``pinned``."""
+    run = engine.runner
+    raws = {"flm_lm": run._safe_rect(pinned.face_rect),
+            "hand_lm": run._safe_rect(pinned.hand_rects)}
+    valid = {"flm_lm": pinned.face_tracking,
+             "hand_lm": pinned.hand_tracking}
+
+    def nhwc_at(idx):
+        return (frames if idx is None else frames[idx]).permute(0, 2, 3, 1)
+    return run._crop_stage(frames, True, nhwc_at, raws, valid)
+
+
+def _same(x, y) -> bool:
+    return torch.equal(x.nan_to_num(-1.0), y.nan_to_num(-1.0))
+
+
+def rotation_costs(frames, dev, card: str) -> None:
+    """The work of the rotation paths that is not a kernel of the port,
+    timed with CUDA events on 64 streams of ``frames`` [S, 3, H, W]: the
+    shear crop (``crop_rect_shear``: the separable resample and three
+    shear passes) with cuFFT (``fft``) and with f32 DFT matmuls (``dft``)
+    at the canvas sizes of a 192 and a 256 crop (320 and 384 a side: 64
+    face crops) and of a 224 crop (384: 128 hand crops); one shear pass
+    (``fract_shift`` along a row) alone at each; the exact gather at the
+    stand-ins' sizes; and the BP head (``mlp_apply`` on 64 streams' vitals
+    on the card, ``BPPredictor`` in numpy on the host for one stream)."""
+    from bp_from_video_tpu_torch.models import warp
+    from bp_from_video_tpu_torch.train import bp_regressor as bpr
+    s, _, h, w = frames.shape
+    nhwc = frames.permute(0, 2, 3, 1)
+    side = min(h, w) / 3.0
+    rect = torch.tensor([w / 2.0, h / 2.0, side, side,
+                         math.radians(ROT_TILT)], device=dev)
+    for size, n in ((192, 1), (256, 1), (224, 2)):
+        rr = warp.arr_rect(rect.repeat(s, n, 1))
+        f = nhwc[:, None]
+        t = int(-(-int(size * 1.5) // 64) * 64)
+        canvas = torch.rand((s * n, t, t, 3), device=dev) * 255
+        sh = torch.rand((s * n, t, 1), device=dev) * 4 - 2
+        times = {}
+        for method in ("fft", "dft"):
+            times[method] = (
+                time_ms(lambda m=method: warp.crop_rect_shear(
+                    f, rr, size, method=m), reps=5, inner=2),
+                time_ms(lambda m=method: warp.fract_shift(
+                    canvas, sh, -2, m), reps=5, inner=2))
+        exact = time_ms(lambda: warp.crop_rect(
+            f.expand(s, n, h, w, 3), rr, size, exact_rotation=True),
+            reps=5, inner=2)
+        log(f"[3k cost] {s * n} crops of {size} (canvas {t}x{t}) on {card}: "
+            f"shear crop fft {times['fft'][0]:.3f} ms, dft "
+            f"{times['dft'][0]:.3f} ms; one shear pass fft "
+            f"{times['fft'][1]:.3f} ms, dft {times['dft'][1]:.3f} ms; exact "
+            f"gather {exact:.3f} ms")
+    state, _ = bpr.init_train_state(torch.Generator().manual_seed(0), 6,
+                                    device=dev)
+    x = torch.randn((s, 6), device=dev)
+    with torch.no_grad():
+        head = time_ms(lambda: bpr.mlp_apply(state.params, x))
+    pred = bpr.BPPredictor([p.detach().cpu().numpy()
+                            for p in state.params.weights],
+                           [p.detach().cpu().numpy()
+                            for p in state.params.biases],
+                           np.zeros(6), np.ones(6), np.zeros(2), np.ones(2))
+    vit = (np.array([72.0, 70.0], np.float32), np.array([30.0], np.float32))
+    t = time.perf_counter()
+    for _ in range(1000):
+        pred(*vit)
+    host = (time.perf_counter() - t) * 1e3 / 1000
+    log(f"[3k cost] BP head: mlp_apply on {s} streams' vitals on the card "
+        f"{head:.4f} ms (CUDA events); BPPredictor on one stream on the "
+        f"host {host:.4f} ms (host clock, mean of 1000)")
+
+
+def rotation_modes(clip, dev, card: str) -> collections.Counter:
+    """Phase 3k: the flagship config (64 streams, 480x640, bf16, K1, the
+    fused stem and trunk, stand-ins with template heads) through each
+    rotation path of ``ROT_PATHS`` for ``ROT_STEPS`` steps of ``clip``, the
+    track pinned (``pinned_track``).  Logs each path's host clock and
+    frames/s, its CUDA-event ms a step, K1/K3/K4 launches and host syncs a
+    step and its BPM; fails unless hybrid upright equals cover, the
+    sub-batch path's tilted stream matches the whole-batch shear path's
+    (its crops within one bf16 ulp: cuFFT runs a batch of 1 there and of
+    all the crops here) and its other streams equal hybrid upright's, the
+    whole-batch shear path's landmarks lie within a mean 3 px of shear's,
+    and each path launched K1 and K3 as ``ROT_PATHS`` says.  Returns the
+    launch counts, and the outputs of the last hybrid upright step and
+    their config."""
+    import dataclasses
+
+    from bp_from_video_tpu_torch.config import flagship_config
+    from bp_from_video_tpu_torch.runtime.engine import Engine
+    cfg = dataclasses.replace(flagship_config(clip.shape[1]),
+                              frame_height=clip.shape[-2],
+                              frame_width=clip.shape[-1])
+    total = collections.Counter()
+    runs, engines, outs = {}, {}, {}
+    for tag, mode, tilted, deg, k1, k3 in ROT_PATHS:
+        if mode not in engines:
+            engines[mode] = Engine(dataclasses.replace(
+                cfg, inference=dataclasses.replace(cfg.inference,
+                                                   rotation_mode=mode)),
+                device=dev)
+            engines[mode].params = template_heads(engines[mode].params)
+        eng = engines[mode]
+        pinned = pinned_track(eng, deg, tilted)
+        zero_counters()
+        rows, out, host, dev_ms, state = rotation_run(
+            eng, eng.params, clip[:ROT_STEPS], pinned, ROT_STEPS)
+        launches = {k: fn.launches for k, fn in counters().items()}
+        total.update(launches)
+        syncs = count_syncs(lambda: eng.batch_step(
+            eng.params, state._replace(track=pinned), clip[ROT_STEPS],
+            torch.full((cfg.num_streams,), (ROT_STEPS + 1) / 30.0,
+                       device=dev)))
+        per = {k: launches[k] / ROT_STEPS for k in ("multi_crop",
+                                                     "dense_s2_block",
+                                                     "roi_samples")}
+        bpm = out.bpm.float().cpu()
+        s = cfg.num_streams
+        log(f"[3k {tag}] S={s} {cfg.frame_height}x{cfg.frame_width} bf16 on "
+            f"{card}: {host:.3f} ms/step host clock = "
+            f"{s * 1e3 / host:.1f} frames/s; {dev_ms:.3f} ms/step between "
+            f"CUDA events; launches a step K1 {per['multi_crop']:g}, K3 "
+            f"{per['dense_s2_block']:g}, K4 {per['roi_samples']:g}; host "
+            f"syncs a step {syncs}; BPM stream 0 {bpm[0].tolist()}, forehead "
+            f"BPM over the streams {sorted(set(bpm[:, 0].tolist()))}")
+        if (per["multi_crop"], per["dense_s2_block"],
+                per["roi_samples"]) != (k1, k3, 1):
+            fail(f"[3k {tag}]: K1/K3/K4 launched {per} a step, expected "
+                 f"{k1}/{k3}/1")
+        if not bool(torch.isfinite(bpm[:, 0]).all()):
+            fail(f"[3k {tag}]: forehead BPM not finite on every stream")
+        runs[tag], outs[tag] = rows, out
+    rotation_costs(clip[ROT_STEPS], dev, card)
+    up, cov = runs["hybrid upright"], runs["cover"]
+    if not all(_same(x, y) for ra, rb in zip(up, cov)
+               for x, y in zip(ra, rb)):
+        fail("[3k] hybrid upright differs from cover")
+    k1, full = runs["hybrid tilt 25 k1"], runs["hybrid tilt 25"]
+    d0 = max(float((x[:1] - y[:1]).abs().nan_to_num(0).max())
+             for ra, rb in zip(k1, full) for x, y in zip(ra[:2], rb[:2]))
+    rest = all(_same(x[1:], y[1:]) for ra, rb in zip(k1, up)
+               for x, y in zip(ra, rb))
+    # The crops of one step, sub-batch (stream 0 gated) and whole batch.
+    eng = engines["hybrid"]
+    frames = clip[ROT_STEPS]
+    sub = rotation_crops(eng, frames, pinned_track(eng, ROT_TILT, 1))
+    whole = rotation_crops(eng, frames, pinned_track(eng, ROT_TILT, None))
+    upr = rotation_crops(eng, frames, pinned_track(eng, 0.0, None))
+    nh = cfg.inference.max_hands
+    crop_err, crop_rest = 0.0, True
+    for key, n in (("flm_lm", 1), ("hand_lm", nh)):
+        a, b, c = sub[key][0].float(), whole[key][0].float(), upr[key][0]
+        tol = BF16_ULP * torch.maximum(a[:n].abs(), b[:n].abs()) + 1e-6
+        crop_err = max(crop_err, float(((a[:n] - b[:n]).abs() / tol).max()))
+        crop_rest &= torch.equal(sub[key][0][n:], c[n:])
+    log(f"[3k] sub-batch vs whole-batch shear, stream 0: landmarks differ "
+        f"by up to {d0:.3g} px over {ROT_STEPS} steps, crops by up to "
+        f"{crop_err:.3g} bf16 ulps (tolerance 1); the other streams' "
+        f"landmarks, ROIs and crops equal hybrid upright's: "
+        f"{rest and crop_rest}")
+    if d0 > 1.0 or crop_err > 1.0 or not (rest and crop_rest):
+        fail("[3k] the shear sub-batch differs from the whole-batch shear "
+             "or touched an upright stream")
+    sh = runs["shear tilt 25"]
+    dists = []
+    for ra, rb in zip(full, sh):
+        for x, y in zip(ra[:2], rb[:2]):
+            d = (x - y).norm(dim=-1)
+            dists.append(d[torch.isfinite(d)])
+    mean = float(torch.cat(dists).mean())
+    log(f"[3k] whole-batch hybrid vs shear: landmarks a mean {mean:.4g} px "
+        "apart (bound 3)")
+    if not mean < 3.0:
+        fail("[3k] the whole-batch hybrid landmarks are not shear's")
+    return total, outs["hybrid upright"], engines["hybrid"].config
+
+
+def rotation_card_vs_cpu(clip, devices=("cuda", "cpu")) -> None:
+    """Phase 4's rotation runs: a small f32 config (stand-ins with template
+    heads, K1 and the fused stem and trunk) on the card and on the CPU,
+    the track pinned (``pinned_track``), through ``exact`` and ``shear``
+    at 25 degrees and ``hybrid`` upright, tilted past its budget (all
+    streams at 25 degrees, ``shear_subbatch`` 1: the whole-batch shear) and
+    with stream 0 alone tilted (the sub-batch): landmarks within 1 px (f32
+    coordinates summed in another order land within roundoff of a pixel
+    edge), BPM equal from row ``SETTLED`` on (the periodogram's first few
+    samples pick a peak by roundoff), PTT within one sample period on
+    every row."""
+    import dataclasses
+
+    from bp_from_video_tpu_torch.config import EngineConfig, InferenceConfig
+    from bp_from_video_tpu_torch.runtime.engine import Engine
+    settled = 10
+    s, h, w = clip.shape[1], clip.shape[-2], clip.shape[-1]
+    for mode, tilted, deg, k in (("exact", None, ROT_TILT, 4),
+                                 ("shear", None, ROT_TILT, 4),
+                                 ("hybrid", None, 0.0, 4),
+                                 ("hybrid", None, ROT_TILT, 1),
+                                 ("hybrid", 1, ROT_TILT, 4)):
+        cfg = EngineConfig(frame_height=h, frame_width=w, num_streams=s,
+                           compute_dtype="float32",
+                           inference=InferenceConfig(
+                               use_pallas=True, fused_stem=True,
+                               fused_trunk=True, rotation_mode=mode,
+                               shear_subbatch=k))
+        name = (f"{mode} {'upright' if deg == 0 else f'tilt {deg:g}'}"
+                f"{' stream 0' if tilted else ''}, shear_subbatch {k}")
+        res = {}
+        for where in devices:
+            eng = Engine(cfg, device=where)
+            params = template_heads(eng.params)
+            pinned = pinned_track(eng, deg, tilted)
+            state = eng.init_state()
+            pts, bpm, ptt = [], [], []
+            t = time.perf_counter()
+            for i in range(clip.shape[0]):
+                state, out = eng.batch_step(
+                    params, state._replace(track=pinned), clip[i].to(where),
+                    torch.full((s,), (i + 1) / 30.0, device=eng.device))
+                m = out.models
+                pts.append(torch.cat([m.face_landmarker.points.flatten(1),
+                                      m.hand_landmarker.points.flatten(1)],
+                                     1).cpu())
+                bpm.append(out.bpm.cpu())
+                ptt.append(out.ptt.cpu())
+            res[where] = tuple(torch.stack(x) for x in (pts, bpm, ptt))
+            log(f"small f32 [{name}] S={s} {h}x{w} on {where}: "
+                f"{clip.shape[0]} steps in {time.perf_counter() - t:.2f} s")
+        (pa, ba, ta), (pb, bb, tb) = (res[d] for d in devices)
+        dp = float((pa - pb).abs().nan_to_num(0).max())
+        same_nan = torch.equal(pa.isnan(), pb.isnan())
+        bpm_ok = _same(ba[settled:], bb[settled:])
+        ptt_ok = bool((((ta - tb).abs() <= 1000.0 / 30.0)
+                       | (ta.isnan() & tb.isnan())).all())
+        log(f"card vs CPU [{name}]: landmarks differ by up to {dp:g} px "
+            f"(NaN pattern equal {same_nan}); BPM equal from row {settled} "
+            f"{bpm_ok}, last {ba[-1].tolist()} / {bb[-1].tolist()}; PTT "
+            f"within a sample period on every row {ptt_ok}")
+        if not (dp <= 1.0 and same_nan and bpm_ok and ptt_ok
+                and bool(torch.isfinite(ba[-1, :, 0]).all())):
+            fail(f"card and CPU differ [{name}]")
+
+
+# -- phase 6: the BP head -----------------------------------------------------
+
+PREDICTOR = os.path.join("models", "bp_e2e_predictor.npz")
+
+
+def bp_hud(out, cfg, frames, here: str) -> None:
+    """6a: the repository's trained head through ``Drawer.present`` on a
+    pulse clip's HUD vitals (stream 0 of ``out``, composed on the card):
+    ``last_bp`` against a numpy recomputation (features, standardization,
+    the tanh GELU MLP) at rtol 1e-6, and the BP line drawn in magenta."""
+    from bp_from_video_tpu_torch.models.runner import map_leaves
+    from bp_from_video_tpu_torch.render.drawer import Drawer
+    from bp_from_video_tpu_torch.train.bp_regressor import load_predictor
+    pred = load_predictor(os.path.join(here, PREDICTOR))
+    drawer = Drawer(cfg, show=False, bp_predictor=pred, device=frames.device)
+    img, plot, packed = drawer.compose(frames[:1],
+                                       map_leaves(lambda a: a[:1], out))
+    drawer.present(img[0], plot[0], packed[0])
+    bpm = out.bpm[0].float().cpu().numpy()
+    ptt = out.ptt[0].float().cpu().numpy()
+    with np.load(os.path.join(here, PREDICTOR)) as d:
+        x = np.concatenate([bpm, ptt])
+        ok = np.isfinite(x)
+        hh = (np.concatenate([np.where(ok, x, 0.0), ok]) - d["f_mu"]) / d[
+            "f_sd"]
+        n = sum(k.startswith("w_") for k in d.files)
+        for i in range(n):
+            hh = hh @ d[f"w_{i}"] + d[f"b_{i}"]
+            if i < n - 1:
+                hh = 0.5 * hh * (1 + np.tanh(np.sqrt(2 / np.pi)
+                                             * (hh + 0.044715 * hh ** 3)))
+        want = hh * d["l_sd"] + d["l_mu"]
+    f = drawer.last_frame
+    magenta = int(((f[..., 0] > 150) & (f[..., 1] < 90)
+                   & (f[..., 2] > 150)).sum()) if drawer.cv2 else -1
+    log(f"[6a] bp_e2e_predictor on stream 0's HUD vitals BPM {bpm.tolist()} "
+        f"PTT {ptt.tolist()}: Drawer.present last_bp {drawer.last_bp.tolist()}"
+        f", numpy {want.tolist()}; magenta BP-line pixels {magenta}")
+    if not (np.allclose(drawer.last_bp, want, rtol=1e-6)
+            and np.isfinite(want).all() and magenta != 0):
+        fail("[6a] the BP head on the HUD differs from its numpy "
+             "recomputation, or its line is not drawn")
+
+
+def train_cli(tmp: str, dev, card: str) -> str:
+    """6b: ``python -m bp_from_video_tpu_torch.train --synthetic 4096`` on
+    the card, through its ``main``: 500 steps (exporting the head), then
+    250 + 250 resumed, then 20 steps on the CPU.  Fails unless the
+    held-out MAE is under 5 mmHg, the resumed run's head equals the
+    uninterrupted run's, and the card's first 20 losses equal the CPU's
+    at rtol 1e-4 (f32 matmuls summed in another order, 20 AdamW steps).
+    Returns the exported head's path."""
+    import contextlib
+    import io
+
+    from bp_from_video_tpu_torch.train import __main__ as tmain
+    from bp_from_video_tpu_torch.train import bp_regressor as bpr
+    base = ["--synthetic", "4096"]
+    orig = bpr.train_step
+
+    def run(argv):
+        losses = []
+
+        def spy(*a, **k):
+            st, loss = orig(*a, **k)
+            losses.append(loss)
+            return st, loss
+        bpr.train_step = spy
+        buf = io.StringIO()
+        try:
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = tmain.main(base + argv)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        finally:
+            bpr.train_step = orig
+        if rc != 0:
+            fail(f"[6b] train main({argv}) returned {rc}")
+        return buf.getvalue(), [float(x) for x in losses], secs
+    head = os.path.join(tmp, "head.npz")
+    out, losses, secs = run(["--steps", "500", "--device", dev.type,
+                             "--predictor", head])
+    last = [ln for ln in out.splitlines() if "eval MAE" in ln][-1]
+    mae = (float(last.split("SBP")[1].split()[0]),
+           float(last.split("DBP")[1].split()[0]))
+    log(f"[6b] train --synthetic 4096 --steps 500 on {card}: {secs:.2f} s "
+        f"({secs / 500 * 1e3:.3f} ms a step, host clock, the whole call); "
+        f"{last.strip()}")
+    ck = os.path.join(tmp, "ck")
+    run(["--steps", "250", "--device", dev.type, "--checkpoint", ck])
+    out2, _, _ = run(["--steps", "500", "--device", dev.type,
+                      "--checkpoint", ck, "--resume"])
+    with np.load(head) as a, np.load(ck + "_predictor.npz") as b:
+        resumed = sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files)
+    _, cpu_losses, _ = run(["--steps", "20", "--device", "cpu"])
+    err = max(abs(x - y) / abs(y) for x, y in zip(losses[:20], cpu_losses))
+    log(f"[6b] 250 + 250 resumed ({'resumed at step 250' in out2}) equals "
+        f"the uninterrupted head: {resumed}; first 20 losses card vs CPU: "
+        f"largest relative difference {err:.3g} (rtol 1e-4); card "
+        f"{losses[:3]} ..., CPU {cpu_losses[:3]} ...")
+    if not (max(mae) < 5.0 and resumed and err <= 1e-4
+            and "resumed at step 250" in out2):
+        fail("[6b] training on the card: MAE, resume or CPU parity failed")
+    return head
+
+
+def bp_report(tag: str, out: str, streams: int) -> None:
+    """6c: the offline CLI's report with ``--bp``: a settled mean BP line
+    in mmHg for every stream."""
+    lines = [ln for ln in out.splitlines() if "settled mean BP:" in ln]
+    log(f"[{tag}] --bp report: {lines}")
+    if len(lines) != streams or not all("mmHg" in ln for ln in lines):
+        fail(f"[{tag}] the --bp report has no mmHg for every stream")
+
+
+def e2e_train(clip, dev, card: str, head: str,
+              steps: int = 30, warm: int = 10) -> collections.Counter:
+    """6d: ``make_e2e_train_step`` over the flagship engine (64 streams,
+    stand-ins with template heads, half the streams tracked) on ``clip``:
+    ``warm`` plain steps, then ``steps`` end-to-end steps (the engine
+    under no_grad through its kernels, the head's AdamW update), with the
+    launch counters set to 0 just before those and read just after.  Fails
+    unless the engine's BPM and PTT on every step equal an inference-only
+    run's, every loss is finite and K1, K3 and K4 launched every step.
+    Returns the launch counts."""
+    import dataclasses
+
+    from bp_from_video_tpu_torch.config import flagship_config
+    from bp_from_video_tpu_torch.runtime.engine import Engine
+    from bp_from_video_tpu_torch.train import bp_regressor as bpr
+    cfg = dataclasses.replace(flagship_config(clip.shape[1]),
+                              frame_height=clip.shape[-2],
+                              frame_width=clip.shape[-1])
+    eng = Engine(cfg, device=dev)
+    params = template_heads(eng.params)
+    s, h, w = cfg.num_streams, cfg.frame_height, cfg.frame_width
+    tracked = torch.arange(s, device=dev) < s // 2
+    ts = [torch.full((s,), (i + 1) / 30.0, device=dev)
+          for i in range(warm + steps)]
+    state = tracked_state(eng, h, w, tracked)
+    plain = []
+    for i in range(warm + steps):
+        state, out = eng.batch_step(params, state, clip[i], ts[i])
+        plain.append((out.bpm, out.ptt))
+    sig = cfg.signal
+    with np.load(head) as d:
+        norm = {k: torch.from_numpy(d[k]).to(dev)
+                for k in ("f_mu", "f_sd", "l_mu", "l_sd")}
+    tstate, opt = bpr.init_train_state(
+        torch.Generator().manual_seed(0), 2 * (sig.num_signals
+                                                + sig.num_pairs),
+        device=dev)
+    seen = []
+
+    def engine_step(*a):
+        st, o = eng.batch_step(*a)
+        seen.append((o.bpm, o.ptt))
+        return st, o
+    step = bpr.make_e2e_train_step(engine_step, opt, norm)
+    labels = torch.stack([120 + 10 * torch.rand(s, device=dev),
+                          80 + 6 * torch.rand(s, device=dev)], -1)
+    state = tracked_state(eng, h, w, tracked)
+    for i in range(warm):
+        state, _ = eng.batch_step(params, state, clip[i], ts[i])
+    zero_counters()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses = []
+    for i in range(warm, warm + steps):
+        state, tstate, loss = step(params, state, tstate, clip[i], ts[i],
+                                   labels)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / steps
+    launches = {k: fn.launches for k, fn in counters().items()}
+    losses = torch.stack(losses).cpu()
+    same = all(_same(a, b) and _same(c, d) for (a, c), (b, d)
+               in zip(seen, plain[warm:]))
+    log(f"[6d] make_e2e_train_step over the flagship engine, S={s} "
+        f"{h}x{w} bf16 on {card}: {steps} steps after {warm} warm, "
+        f"{ms:.3f} ms a step (host clock); losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; engine BPM and PTT equal the inference-only "
+        f"run's on every step: {same}; launches {launches}")
+    per = {k: launches[k] / steps for k in ("multi_crop", "dense_s2_block",
+                                            "roi_samples")}
+    if not (same and bool(torch.isfinite(losses).all())
+            and per == {"multi_crop": 1, "dense_s2_block": 10,
+                        "roi_samples": 1}
+            and int(tstate.step) == steps):
+        fail("[6d] the end-to-end training step failed")
+    return collections.Counter(launches)
+
+
 def profile(engine, params, state, clip, t0, out_dir, path, render=None,
             lagged: int = 0):
     """Trace all but the last two steps of ``clip`` through the engine (as
@@ -1431,6 +1984,7 @@ def card_vs_cpu(steps: int, dev):
             f"difference {d:.3g} (taps' largest {taps['cpu'].abs().max():.3g})")
     for lagged in (0, LAGGED):
         multistream_card_vs_cpu(person, lagged)
+    rotation_card_vs_cpu(clip[:40])
 
 
 def _layer_mask(det, h: int, w: int):
@@ -1633,17 +2187,23 @@ def run_cli(tag: str, argv: list[str], card: str, steps: int):
     step, and for the pipelined driver the frames its feeder dropped; fails
     unless the call ran ``steps`` engine steps and K1 and K4 (its sample
     entry, skin-weighted: the segmenter runs) launched once a step.
-    Returns the launch counts."""
+    Returns the launch counts and what the call printed."""
+    import io
+
     from bp_from_video_tpu_torch import cli
     from bp_from_video_tpu_torch.utils.profiling import profiler
     profiler.clear()
-    with spy_runtime() as seen:
+    buf = io.StringIO()
+    with spy_runtime() as seen, contextlib.redirect_stdout(buf):
         zero_counters()
         torch.cuda.synchronize()
         t = time.perf_counter()
         rc = cli.main(argv)
         torch.cuda.synchronize()
         t_end = time.perf_counter()
+    printed = buf.getvalue()
+    for line in printed.splitlines():
+        log(f"[{tag}] | {line}")
     launches = {k: fn.launches for k, fn in counters().items()}
     launches["roi_samples weighted"] = counters()["roi_samples"
                                                   ].weighted_launches
@@ -1677,7 +2237,7 @@ def run_cli(tag: str, argv: list[str], card: str, steps: int):
             f"({int(f.dropped.sum())} of {int(f._seq.sum())} captured, "
             f"{f._seq.sum() / f._seq.size / (t_end - seen['t_first']):.1f} "
             "frames/s a stream from the first step)")
-    return launches
+    return launches, printed
 
 
 def runtime_card_vs_cpu(paths: list[str], micro_batch: int | None,
@@ -1750,22 +2310,22 @@ def runtime_card_vs_cpu(paths: list[str], micro_batch: int | None,
         fail(f"[5e {name}] the card's outputs differ from the CPU's")
 
 
-def host_runtime(dev, card: str, s: int = 8, h: int = 480, w: int = 640,
-                 frames: int = RUNTIME_FRAMES) -> collections.Counter:
+def host_runtime(dev, card: str, bp_head: str, s: int = 8, h: int = 480,
+                 w: int = 640, frames: int = RUNTIME_FRAMES
+                 ) -> collections.Counter:
     """Phase 5: the normal entry points on the card (``cli.main`` in this
     process, ``--preset multistream --dtype bfloat16 --device cuda``) over
     ``s`` recorded files of ``frames`` person scenes at ``h``x``w``: (5a)
     ``--offline``, (5b) ``--offline --micro-batch 4``, (5c) ``--pipelined``
     headless, its readers paced at the files' frame rate, (5d) the
     sequential driver on one file, headless; (5e) ``process_videos`` card
-    against CPU on two clips of each of ``RUNTIME_SEEDS``.  The CLI's config is its own
+    against CPU on two clips of each of ``RUNTIME_SEEDS``.  5a also loads
+    the BP head ``bp_head`` (``--bp``); its report must give mmHg for every
+    stream (6c).  The CLI's config is its own
     mapping: the kernels on (a CUDA device), the fused stem and trunk at
     their defaults (off).  BPM is logged, not held: the face net is a
     random-init stand-in and the entry points start untracked.  Returns
     the launch counts of 5a-5d."""
-    import shutil
-    import tempfile
-
     import cv2
     log(f"[5] OpenCV {cv2.__version__}")
     total = collections.Counter()
@@ -1781,7 +2341,8 @@ def host_runtime(dev, card: str, s: int = 8, h: int = 480, w: int = 640,
         base = ["--preset", "multistream", "--dtype", "bfloat16",
                 "--device", dev.type, "--headless"]
         for tag, argv, steps in (
-                ("5a offline", ["--source", *paths, "--offline"], frames),
+                ("5a offline", ["--source", *paths, "--offline", "--bp",
+                                bp_head], frames),
                 ("5b offline, micro-batch 4",
                  ["--source", *paths, "--offline", "--micro-batch", "4"],
                  -(-frames // 4)),
@@ -1790,7 +2351,10 @@ def host_runtime(dev, card: str, s: int = 8, h: int = 480, w: int = 640,
                   str(RUNTIME_MAX)], RUNTIME_MAX),
                 ("5d sequential", ["--source", paths[0], "--max-frames",
                                    str(RUNTIME_MAX)], RUNTIME_MAX)):
-            total.update(run_cli(tag, argv + base, card, steps))
+            launches, printed = run_cli(tag, argv + base, card, steps)
+            total.update(launches)
+            if tag.startswith("5a"):
+                bp_report("6c, 5a offline --bp", printed, s)
             torch.cuda.empty_cache()
         # 5e on two of the files, then on two files of a second seed.
         for seed in RUNTIME_SEEDS:
@@ -1809,6 +2373,7 @@ def main():
                     help="directory for torch.profiler traces of the steps "
                     "of phases 3, 3b and 3e-3j")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA card (torch.cuda.is_available() is false)")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1865,6 +2430,18 @@ def main():
     launches = flagship("standin", clip, dev, card, args.profile)
     total.update(launches)
     log("phase 3: flagship engine (stand-in nets) ran through K1, K3, K4")
+    t = time.perf_counter()
+    launches, rot_out, rot_cfg = rotation_modes(clip, dev, card)
+    total.update(launches)
+    log(f"phase 3k: the rotation modes ran at full width "
+        f"({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    bp_hud(rot_out, rot_cfg, clip[ROT_STEPS - 1], here)
+    del rot_out
+    total.update(e2e_train(clip, dev, card, os.path.join(here, PREDICTOR)))
+    log(f"phase 6a, 6d: the BP head on the HUD, end-to-end training over the "
+        f"flagship engine through K1, K3, K4 ({time.perf_counter() - t:.1f} "
+        "s)")
     total.update(flagship("mesh", clip, dev, card, args.profile))
     log("phase 3b: flagship engine with the compiled face mesh ran through "
         "K6")
@@ -1902,12 +2479,23 @@ def main():
     log("phase 3d: the lone-unit graph ran through K5")
     torch.cuda.empty_cache()
 
-    card_vs_cpu(STEPS, dev)
-    log("phase 4: card and CPU agree")
-    total.update(host_runtime(dev, card))
-    log("phase 5: the CLI ran offline, micro-batched, pipelined and "
-        "sequential through K1 and K4 (weighted); process_videos card and "
-        "CPU agree")
+    t = time.perf_counter()
+    card_vs_cpu(PHASE4_STEPS, dev)
+    log(f"phase 4: card and CPU agree ({time.perf_counter() - t:.1f} s)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t = time.perf_counter()
+        head = train_cli(tmp, dev, card)
+        log(f"phase 6b: the trainer ran on the card, resumed, and agrees "
+            f"with the CPU ({time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
+        total.update(host_runtime(dev, card, head))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 5: the CLI ran offline (6c: with --bp), micro-batched, "
+        "pipelined and sequential through K1 and K4 (weighted); "
+        f"process_videos card and CPU agree ({time.perf_counter() - t:.1f} "
+        "s)")
     launches = dict(total)
 
     # Each kernel's launches summed over every path of phases 3 and 5.
@@ -1921,6 +2509,7 @@ def main():
         "roi_samples weighted"]
     # K4's row counts the launches of both its entries.
     k4["launches"] = sum(e["launches"] for e in k4["entries"].values())
+    log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "entries")

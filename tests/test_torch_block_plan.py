@@ -17,6 +17,18 @@ import torch
 
 from bp_from_video_tpu_torch.kernels import block as tbk
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU steps on one thread: the suite runs several test
+    processes at once, and PyTorch's default (a thread a core in each)
+    oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # The 11 K3 launch shapes of the flagship paths: (B, h = w, cin, cout,
 # wspec) of the face stand-in (B = 64), the hand stand-in (B = 128) and the
 # compiled face mesh's stem (cout 16, PReLU).

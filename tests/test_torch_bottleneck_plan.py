@@ -18,6 +18,18 @@ import torch
 
 from bp_from_video_tpu_torch.kernels import bottleneck as tbn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU steps on one thread: the suite runs several test
+    processes at once, and PyTorch's default (a thread a core in each)
+    oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # The face mesh's seven stages: (spatial size, C, D); C' = C.
 MESH_STAGES = ((128, 16, 8), (64, 32, 16), (32, 64, 32), (16, 128, 64),
                (8, 128, 64), (4, 128, 64), (2, 128, 64))

@@ -1,7 +1,9 @@
 """The port's CUDA kernels K1 (multi_crop), K2 (stem_packed), K3
 (dense_s2_block), K4 (roi_sums and roi_samples), K5 (bottleneck_s1) and K6
-(bottleneck_chain) against their plain PyTorch versions on the card, and
-the device feeder's pinned, asynchronous uploads against its CPU batches.
+(bottleneck_chain) against their plain PyTorch versions on the card, the
+device feeder's pinned, asynchronous uploads against its CPU batches, the
+rotated crops (shear, both methods, and exact) card against CPU, and the
+hybrid rotation gate's one host sync a step.
 
 Every test here needs an NVIDIA card: it carries the ``cuda`` marker and
 skips elsewhere.  The file imports neither JAX nor the reference package
@@ -796,3 +798,79 @@ def test_cuda_device_feeder_matches_cpu(cuda_device):
     torch.testing.assert_close(out["cpu"][2][0][1], out["cpu"][1][0][1])
     torch.testing.assert_close(out["cpu"][1][0][0], torch.from_numpy(
         frames[0, 1]).permute(2, 0, 1).flip(0))
+
+
+@pytest.mark.parametrize("kind", ["shear-fft", "shear-dft", "exact"])
+def test_cuda_rotated_crops_match_cpu(cuda_device, kind):
+    """The rotated crops of 8 rects (quarter turns and an off-frame rect
+    among them) on the card against the CPU, 0-255 pixels, within 1e-2:
+    the card contracts the grid's coordinate products into FMAs, which
+    moves a coordinate near 160 px by an f32 ulp (1.5e-5 px), and a sample
+    by up to 255 times that; cuFFT and the matmuls sum in another order
+    (measured on the H100: 3.6e-3 for all three kinds)."""
+    from bp_from_video_tpu_torch.models import warp
+    rng = np.random.default_rng(5)
+    frames = torch.from_numpy(rng.uniform(0, 255, (8, 120, 160, 3))
+                              .astype(np.float32))
+    deg = np.array([0, 25, -40, 90, 135, 180, -170, 35], np.float32)
+    rects = np.stack([np.full(8, 80.0), np.full(8, 60.0), np.full(8, 64.0),
+                      np.full(8, 64.0), np.deg2rad(deg)], -1
+                     ).astype(np.float32)
+    rects[-1, :2] = (10.0, 110.0)
+    r = torch.from_numpy(rects)
+
+    def crop(f, rr):
+        if kind == "exact":
+            return warp.crop_rect(f, warp.arr_rect(rr), 48,
+                                  exact_rotation=True)
+        return warp.crop_rect_shear(f, warp.arr_rect(rr), 48,
+                                    method=kind.split("-")[1])
+    got = crop(frames.to(cuda_device), r.to(cuda_device))
+    want = crop(frames, r)
+    torch.cuda.synchronize()
+    assert float((got.cpu() - want).abs().max()) <= 1e-2
+
+
+def test_cuda_hybrid_gate_syncs_once_a_step(cuda_device):
+    """``hybrid`` on the K1 path with one tilted stream (the shear
+    sub-batch) reads its gate in one host sync a step: one more than
+    ``cover`` on the same step, and K1 launches once."""
+    import warnings
+
+    from bp_from_video_tpu_torch.config import InferenceConfig, RunningMode
+    from bp_from_video_tpu_torch.models.runner import InferenceRunner
+
+    def syncs(mode):
+        cfg = InferenceConfig(
+            face_landmarker=True, hand_landmarker=True,
+            running_mode=RunningMode.VIDEO, use_pallas=True,
+            fused_stem=True, fused_trunk=True, rotation_mode=mode,
+            face_detector_path=None, face_landmarker_path=None,
+            hand_landmarker_path=None, person_segmenter_path=None,
+            hand_lm_standin_path=None, palm_det_standin_path=None,
+            seg_standin_path=None)
+        run = InferenceRunner(cfg, 96, 128, device=cuda_device)
+        face = torch.tensor([[64.0, 48.0, 48.0, 48.0, 0.0],
+                             [64.0, 48.0, 48.0, 48.0, 0.5]],
+                            device=cuda_device)
+        st = run.init_state(2)._replace(
+            face_rect=face, face_tracking=torch.ones(
+                2, dtype=torch.bool, device=cuda_device),
+            hand_rects=face[:, None].expand(2, 2, 5).clone(),
+            hand_tracking=torch.ones((2, 2), dtype=torch.bool,
+                                     device=cuda_device))
+        frames = torch.randint(0, 256, (2, 3, 96, 128), dtype=torch.uint8,
+                               device=cuda_device)
+        run.predict_batch(run.params, st, frames)        # warm: builds
+        torch.cuda.synchronize()
+        n = twk.multi_crop.launches
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                run.predict_batch(run.params, st, frames)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert twk.multi_crop.launches == n + 1
+        return sum("synchroniz" in str(w.message) for w in caught)
+    assert syncs("hybrid") == syncs("cover") + 1

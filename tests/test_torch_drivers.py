@@ -256,10 +256,12 @@ def test_cli_needs_cuda_unless_cpu_is_asked(videos, monkeypatch):
         cli.main(["--source", *videos, "--offline", "--headless"])
 
 
-def test_cli_bp_raises_naming_item_14a(videos):
-    with pytest.raises(NotImplementedError, match="14a"):
-        cli.main(["--source", videos[0], "--offline", "--bp", "p.npz",
-                  "--device", "cpu"])
+def test_cli_bp_raises_naming_item_14a(videos, tmp_path):
+    """``--bp`` loads its head before any video is read: a missing file
+    raises at once."""
+    with pytest.raises(FileNotFoundError):
+        cli.main(["--source", videos[0], "--offline", "--bp",
+                  str(tmp_path / "p.npz"), "--device", "cpu"])
 
 
 def test_module_entry_point_runs_offline(videos):

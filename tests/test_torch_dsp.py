@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import scipy.signal
+import pytest
 import torch
 
 from bp_from_video_tpu.config import SignalConfig as JSignalConfig
@@ -22,6 +23,18 @@ from bp_from_video_tpu.ops import spectrum as jspec
 from bp_from_video_tpu_torch.config import SignalConfig
 from bp_from_video_tpu_torch.ops import chain, correlate, iir, spectrum
 from bp_from_video_tpu_torch.ops import signal as sig
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU steps on one thread: the suite runs several test
+    processes at once, and PyTorch's default (a thread a core in each)
+    oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N = 64
 FS = 30.0

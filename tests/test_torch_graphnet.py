@@ -23,6 +23,18 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU steps on one thread: the suite runs several test
+    processes at once, and PyTorch's default (a thread a core in each)
+    oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_engine import (FUSED, H, S, W, _frames, _jstate,  # noqa: E402
                                _np, _pulse_clip, _template_heads)

@@ -15,6 +15,18 @@ from bp_from_video_tpu.models import warp as jwarp
 from bp_from_video_tpu_torch import convert
 from bp_from_video_tpu_torch.models import blaze, detection, warp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU steps on one thread: the suite runs several test
+    processes at once, and PyTorch's default (a thread a core in each)
+    oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -161,10 +173,14 @@ def test_rect_geometry_and_crops_match_reference():
         # may flip one weight rounding (2^-8 of a 255 pixel).
         _close(got, want, atol=5e-3 if dt == torch.float32 else 2.0,
                rtol=0)
-    with pytest.raises(NotImplementedError):
-        warp.crop_rect(torch.from_numpy(frames),
-                       warp.arr_rect(torch.from_numpy(rect)), 24,
-                       exact_rotation=True)
+    rect[:, 4] = [0.4, -2.0]
+    want = jax.vmap(lambda f, r: jwarp.crop_rect(
+        f, jwarp.Rect(*r), 24, exact_rotation=True))(
+            jnp.asarray(frames), jnp.asarray(rect))
+    got = warp.crop_rect(torch.from_numpy(frames),
+                         warp.arr_rect(torch.from_numpy(rect)), 24,
+                         exact_rotation=True)
+    _close(got, want, atol=1e-3, rtol=0)
 
     jlb = jax.vmap(lambda f: jwarp.letterbox(f, 32))(jnp.asarray(frames))
     lb = warp.letterbox(torch.from_numpy(frames), 32)

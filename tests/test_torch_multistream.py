@@ -32,6 +32,18 @@ from bp_from_video_tpu_torch.runtime.engine import Engine
 from chip_smoke import pulse_clip, template_heads, tracked_state
 from test_torch_render import _t, _to_port, assert_images_close
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU steps on one thread: the suite runs several test
+    processes at once, and PyTorch's default (a thread a core in each)
+    oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 S, H, W = 2, 96, 128
 STANDINS = ("hand_lm_standin_path", "palm_det_standin_path",
             "seg_standin_path")

@@ -33,6 +33,18 @@ from bp_from_video_tpu_torch.render import glyphs, overlay, plotter
 from bp_from_video_tpu_torch.render.drawer import Drawer
 from bp_from_video_tpu_torch.runtime.engine import StepOutputs
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU steps on one thread: the suite runs several test
+    processes at once, and PyTorch's default (a thread a core in each)
+    oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 S, H, W = 3, 48, 64
 COLORS = [(31, 119, 180), (255, 127, 14)]
 

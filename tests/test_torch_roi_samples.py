@@ -19,6 +19,17 @@ from bp_from_video_tpu_torch.kernels import roi as trk
 from bp_from_video_tpu_torch.ops import roi as troi
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU steps on one thread: the suite runs several test
+    processes at once, and PyTorch's default (a thread a core in each)
+    oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed=5, s=3, h=24, w=36, r=8):
     """Planar u8 frames, ROIs with every kind of row the sample entry
     meets, and a weight map."""

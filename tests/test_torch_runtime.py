@@ -34,6 +34,18 @@ from bp_from_video_tpu_torch.runtime.feeder import DeviceFeeder
 from bp_from_video_tpu_torch.utils.profiling import StageProfiler
 from test_torch_streams import write_video
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU steps on one thread: the suite runs several test
+    processes at once, and PyTorch's default (a thread a core in each)
+    oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 H, W, N_FRAMES = 48, 64, 30
 SLOTS = [FrameSlot, FrameSlotPlain]
 

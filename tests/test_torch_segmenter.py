@@ -26,6 +26,18 @@ from bp_from_video_tpu_torch import convert
 from bp_from_video_tpu_torch.config import InferenceConfig
 from bp_from_video_tpu_torch.models import blaze, runner
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU steps on one thread: the suite runs several test
+    processes at once, and PyTorch's default (a thread a core in each)
+    oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 S, H, W = 2, 96, 128
 
 

@@ -21,6 +21,18 @@ from bp_from_video_tpu_torch.config import SignalSpectrumTransform as T
 from bp_from_video_tpu_torch.ops import signal as sig
 from bp_from_video_tpu_torch.ops import spectrum
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU steps on one thread: the suite runs several test
+    processes at once, and PyTorch's default (a thread a core in each)
+    oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FS = 30.0
 
 
