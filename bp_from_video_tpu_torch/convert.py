@@ -3,13 +3,14 @@ runner's params pytree (fetched to the host as numpy, nested dicts and
 lists) into this package's params, so both packages compute with
 identical weights.  Every leaf keeps its dtype (bf16 leaves arrive as
 ``ml_dtypes.bfloat16`` numpy arrays and stay bf16); the packed kernel
-weights (``trunk``, ``stem_wmat``) carry over as they are, and the packed
-stem twin ``stem_p``, which only the reference's ``pack_s2d`` path reads,
-is dropped.  A compiled TFLite graph's params are one flat dict and carry
+weights (``trunk``, ``stem_wmat``) and a stand-in's packed stem twin
+``stem_p`` carry over as they are.  A compiled TFLite graph's params (a
+landmark net, a detector or the segmenter) are one flat dict and carry
 across key for key: the constants ``"{idx}:{name}"`` (integer shape
-operands included, and the stacked ``bnc_*`` weights of the chained
-bottleneck stages), the split-off stem ``__stem__:w/b/alpha`` and its
-packed matrix ``__stem_wmat__``.
+operands included, the stacked ``bnc_*`` weights of the chained
+bottleneck stages, the composed ``fused_dwpw_*`` and packed ``s2d_*``
+weights of the graph passes), the split-off stem ``__stem__:w/b/alpha``
+and its packed matrix ``__stem_wmat__``.
 
 ``mlp_params_from_numpy`` does the same for the BP head: the reference's
 ``MLPParams`` (fetched as numpy) -> this package's, so both compute the
@@ -20,8 +21,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-
-_DROP = ("stem_p",)
 
 
 def _leaf(a, device) -> torch.Tensor:
@@ -36,8 +35,7 @@ def params_from_jax(tree, device="cpu"):
     """Nested dict/list of numpy arrays (the JAX runner's ``params``) ->
     the same structure of tensors on ``device``."""
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()
-                if k not in _DROP}
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device) for v in tree]
     return _leaf(tree, device)

@@ -84,6 +84,13 @@ def pack_s2d(x: Tensor) -> Tensor:
     return y.reshape(b, 4 * c, hh // 2, ww // 2)
 
 
+def unpack_s2d(x: Tensor) -> Tensor:
+    """The inverse of ``pack_s2d``: [B, 4C, H, W] -> [B, C, 2H, 2W]."""
+    b, c4, hh, ww = x.shape
+    y = x.reshape(b, 2, 2, c4 // 4, hh, ww).permute(0, 3, 4, 1, 5, 2)
+    return y.reshape(b, c4 // 4, 2 * hh, 2 * ww)
+
+
 def _packs(pack, n: int) -> tuple[int, ...]:
     packs = (pack,) * n if isinstance(pack, int) else tuple(pack)
     if len(packs) != n:

@@ -5,9 +5,11 @@ Parameters are nested dicts of arrays in the reference package's layouts
 (conv weights HWIO), built host-side in numpy with the same random draws,
 so one seed gives identical weights in both packages.  Activations are
 planar [N, C, H, W] and every function takes the batch as its leading
-axis.  The packed-stem twin (``stem_p``) feeds only the reference
-package's ``pack_s2d`` path and is not built here; it draws no random
-numbers, so skipping it leaves every other draw identical.
+axis.  A landmark stand-in also carries ``stem_p``, the 2x2
+space-to-depth packed twin of its stem (the same linear map on packed
+crops, derived from ``stem``; it draws no random numbers), which
+``blaze_landmark_apply`` runs on crops that arrive packed (kernel K1's
+``pack=2``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bp_from_video_tpu_torch.kernels import warp as warp_kernel
 from bp_from_video_tpu_torch.models import warp
 
 Tensor = torch.Tensor
@@ -121,11 +124,29 @@ def blaze_detector_apply(p: dict, x: Tensor, num_kps: int
     return torch.cat([r8, r16], 1), torch.cat([c8, c16], 1)
 
 
+def _pack_stem(stem: dict, k: int, in_size: int) -> dict:
+    """The 2x2 space-to-depth packed twin of a stride-2 SAME stem conv
+    (numpy): the same linear map from a packed crop [12, S/2, S/2] to the
+    packed stem output [4*O, S/4, S/4] (channel (dy*2+dx)*O + o)."""
+    from bp_from_video_tpu_torch.models.tflite_compiler import (
+        _pack_conv_weight, _tflite_pad)
+    w = np.asarray(stem["w"], np.float32)            # HWIO [k, k, 3, O]
+    b = np.asarray(stem["b"], np.float32)
+    out = in_size // 2
+    pads = (_tflite_pad(in_size, k, 2, "SAME"),) * 2
+    wp, bp, _, _ = _pack_conv_weight(
+        w.transpose(3, 0, 1, 2), b, 2, pads, 2,
+        (in_size, in_size), (out // 2, out // 2))
+    return {"w": np.ascontiguousarray(wp.transpose(1, 2, 3, 0)),  # HWIO
+            "b": np.asarray(bp)}
+
+
 def init_blaze_landmark(seed: int, input_size: int, num_landmarks: int
                         ) -> dict:
-    """Landmark stand-in: 3x3/2 stem, four stride-2 3x3 dw+pw blocks, a
-    dense landmark readout of the flattened [192, S/32, S/32] map and
-    pooled 1x1 presence/aux heads (draw order as in the reference)."""
+    """Landmark stand-in: 3x3/2 stem (and its packed twin ``stem_p``), four
+    stride-2 3x3 dw+pw blocks, a dense landmark readout of the flattened
+    [192, S/32, S/32] map and pooled 1x1 presence/aux heads (draw order as
+    in the reference)."""
     rng = np.random.default_rng(seed)
     stem = _conv_init(rng, 3, 3, 3, 24)
     g = input_size // 32
@@ -133,6 +154,7 @@ def init_blaze_landmark(seed: int, input_size: int, num_landmarks: int
     head_w = rng.standard_normal((fan, 3 * num_landmarks), np.float32)
     return {
         "stem": stem,
+        "stem_p": _pack_stem(stem, 3, input_size),
         "b1": _blaze_block_init(rng, 24, 48, k=3),
         "b2": _blaze_block_init(rng, 48, 96, k=3),
         "b3": _blaze_block_init(rng, 96, 96, k=3),
@@ -146,10 +168,27 @@ def init_blaze_landmark(seed: int, input_size: int, num_landmarks: int
 
 def blaze_landmark_apply(p: dict, x: Tensor, input_size: int
                          ) -> tuple[Tensor, Tensor, Tensor]:
-    """Unfused landmark net on plain planar crops [B, 3, S, S] (the path
-    without the fused kernels): stem, four stride-2 blocks, heads."""
-    return landmark_trunk(p, torch.relu(_conv(p["stem"], x, stride=2)),
-                          input_size)
+    """Unfused landmark net: stem, four stride-2 blocks, heads, on plain
+    planar crops [B, 3, S, S] or on 2x2 space-to-depth packed crops
+    [B, 12, S/2, S/2] (channel (a*2+b)*3 + c, K1's ``pack=2``), which run
+    the packed stem twin ``stem_p``."""
+    s = input_size
+    if x.shape[1] == 12 and "stem_p" in p:
+        from bp_from_video_tpu_torch.models.tflite_compiler import (
+            _pack_axis, _tflite_pad)
+        k = p["stem"]["w"].shape[0]
+        _, _, (lo, hi) = _pack_axis(k, _tflite_pad(s, k, 2, "SAME"), 2, 2, s,
+                                    s // 4)
+        w = p["stem_p"]["w"]                           # HWIO
+        xp = F.pad(x.to(w.dtype), (lo, hi, lo, hi))
+        y = F.conv2d(xp, w.permute(3, 2, 0, 1), stride=2)
+        y = y + p["stem_p"]["b"].to(w.dtype).reshape(-1, 1, 1)
+        # Unpack [B, 4*O, S/4, S/4] -> [B, O, S/2, S/2] (group-major
+        # channels: (dy*2+dx)*O + o), per batch row.
+        y = torch.relu(warp_kernel.unpack_s2d(y))
+    else:
+        y = torch.relu(_conv(p["stem"], x, stride=2))
+    return landmark_trunk(p, y, s)
 
 
 def landmark_trunk(p: dict, y: Tensor, input_size: int

@@ -84,14 +84,15 @@ class _GraphMaker:
         return self.op("PRELU", [x, self.const(name + "/alpha", alpha)],
                        self.shape(x), {}, name)
 
-    def depthwise(self, x: int, name: str) -> int:
-        c = self.shape(x)[3]
+    def depthwise(self, x: int, name: str, stride: int = 1) -> int:
+        n, h, w, c = self.shape(x)
         wt = (self.rng.standard_normal((1, 3, 3, c)) / 3.0).astype(np.float32)
         b = self.rng.uniform(-0.1, 0.1, c).astype(np.float32)
         return self.op("DEPTHWISE_CONV_2D",
                        [x, self.const(name + "/w", wt),
-                        self.const(name + "/b", b)], self.shape(x),
-                       dict(stride=(1, 1), padding="SAME",
+                        self.const(name + "/b", b)],
+                       (n, -(-h // stride), -(-w // stride), c),
+                       dict(stride=(stride, stride), padding="SAME",
                             depth_multiplier=1, **_CONV), name)
 
     def unit(self, x: int, name: str, c: int, d: int, down: bool) -> int:

@@ -11,10 +11,14 @@ cover rotation): one K1 launch crops every landmark crop of every stream
 a stand-in's trunk is four K3 launches and its dense heads, and a compiled
 TFLite graph runs once for the whole batch with its bottleneck stages as
 K6 (or K5) launches.  With ``fused_stem`` alone the stem is one K2 launch
-per net and the trunk plain convolutions.  Without ``use_pallas`` the crops
-are plain separable resamples and the nets run as plain convolutions.  The
-detectors sit behind one batch-level host branch (a device-to-host sync per
-step while any stream needs detection is checked).
+per net and the trunk plain convolutions.  With ``pack_s2d`` and no fused
+stem, K1 still packs the crops of every net that takes them packed: a
+stand-in runs its packed stem twin ``stem_p``, a compiled graph is
+compiled to take its input packed (``packed_inputs``).  Without
+``use_pallas`` the crops are plain separable resamples and the nets run as
+plain convolutions (a net that takes packed crops gets its crop packed in
+the graph).  The detectors sit behind one batch-level host branch (a
+device-to-host sync per step while any stream needs detection is checked).
 
 Rotation modes (``InferenceConfig.resolved_rotation_mode``): ``cover``
 crops the axis-aligned cover of each tracking rect; ``exact`` and ``shear``
@@ -27,29 +31,31 @@ and shear-crops the gated crops in a compacted sub-batch padded to a power
 of two (``_pow2_ladder``), written over their K1 crops; more runs the
 shear crop for the whole batch.
 
-A landmark net is a compiled TFLite graph when its ``.task`` bundle
-resolves (parsed with TensorFlow) or when ``graphs`` hands the runner an
-already parsed ``tflite_compiler.Graph`` for its key (``"flm_lm"``,
-``"hand_lm"``) — the one keyword the reference runner does not have, for
-machines without TensorFlow.  A compiled graph is always compiled
-``batch_flexible``: the reference maps a batch-1 graph over the crops, the
-port feeds the batch.
+A net is a compiled TFLite graph when its asset resolves (a ``.tflite``
+file or a ``.task`` bundle, parsed with TensorFlow) or when ``graphs``
+hands the runner an already parsed ``tflite_compiler.Graph`` (or .tflite
+bytes) for its key (``"face_det"``, ``"flm_det"``, ``"flm_lm"``,
+``"palm_det"``, ``"hand_lm"``, ``"seg"``) — the one keyword the reference
+runner does not have, for machines without TensorFlow.  A compiled graph
+is always compiled ``batch_flexible`` and with ``fuse_dw_pw``/``pack_s2d``
+from the config: the reference maps a batch-1 graph over the crops, the
+port feeds the batch.  A detector's regressors are its widest output (by
+last dim), its logits the single-channel one; the segmenter's confidences
+its largest output (NHWC, made planar at model resolution).
 
 The standalone face detector (``face_detector``) runs on every frame of
 every stream, with no tracking gate and no host sync: its detections,
 largest first, are ``ModelResults.face_detector``.  The segmenter (the
-stand-in, trained or seeded) runs on every frame resized to its input,
-planar end to end: six class confidences and their argmax at frame
-resolution (``seg_full_masks``), or the skin channel alone at frame
-resolution with the class map at model resolution.
-
-Not ported yet (they raise ``NotImplementedError`` naming their ROADMAP
-Queue 1 item): compiled detectors and a compiled segmenter, ``pack_s2d``
-and ``fuse_dw_pw`` (10e).
+stand-in, trained or seeded, or a compiled graph) runs on every frame
+resized to its input, planar end to end: six class confidences and their
+argmax at frame resolution (``seg_full_masks``), or the skin channel alone
+at frame resolution with the class map at model resolution.
+``graph_calls`` counts the calls of each compiled net.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import math
 import os
@@ -232,8 +238,9 @@ class InferenceRunner:
     weights) once and exposes ``predict_batch`` / ``predict``.
     ``device=None`` means ``"cuda"`` (raises without CUDA); pass
     ``device="cpu"`` for the plain versions of the kernels.  ``graphs``:
-    optional {"flm_lm" / "hand_lm": parsed ``Graph`` or .tflite bytes},
-    taking the place of the bundle's landmark blob."""
+    optional {key: parsed ``Graph`` or .tflite bytes} for any of
+    "face_det", "flm_det", "flm_lm", "palm_det", "hand_lm", "seg", taking
+    the place of the asset's blob."""
 
     def __init__(self, cfg: InferenceConfig, frame_height: int,
                  frame_width: int, asset_dir: str | None = None,
@@ -243,10 +250,6 @@ class InferenceRunner:
         self.h, self.w = frame_height, frame_width
         self.dtype = dtype
         self.device = resolve_device(device)
-        if cfg.pack_s2d or cfg.fuse_dw_pw:
-            raise NotImplementedError(
-                "pack_s2d (the packed stem twin, space_to_depth_pack) and "
-                "fuse_dw_pw: not ported (ROADMAP Queue 1 item 10e)")
         # The hybrid gate in f32, as the reference computes deg2rad.
         self._gate_rad = float(np.float32(cfg.hybrid_max_tilt_deg)
                                * np.float32(np.pi / 180))
@@ -256,7 +259,14 @@ class InferenceRunner:
         # Nets with a fused stem (fed 2x2-packed crops): where its weights
         # are and, with the fused trunk, its packed K3 matrix.
         self._stem_src: dict[str, dict] = {}
+        # Landmark nets fed 2x2-packed crops (a fused stem, a stand-in's
+        # packed stem twin, or a graph compiled with packed inputs).
+        self._packed_in: dict[str, bool] = {}
         self._graph_fns: dict[str, Any] = {}    # compiled nets, batched
+        self._det_fns: dict[str, Any] = {}      # detector apply per key
+        self._seg_fn = None
+        #: calls of each compiled net (host count, no sync)
+        self.graph_calls: collections.Counter = collections.Counter()
         self.real_weights: dict[str, bool] = {}
         self.trained_standin: dict[str, bool] = {}
         graphs = dict(graphs or {})
@@ -290,21 +300,24 @@ class InferenceRunner:
             anchors_lib.PALM)).to(self.device)
         if cfg.face_detector:
             path = resolve(cfg.face_detector_path)
-            self._load_detector("face_det",
-                                tc.load_tflite_file(path) if path else None,
-                                128, 896, NUM_FACE_DET_KPS)
+            self._load_detector(
+                "face_det", graphs.pop(
+                    "face_det", tc.load_tflite_file(path) if path else None),
+                128, 896, NUM_FACE_DET_KPS)
         if cfg.face_landmarker:
             det, lm = bundle(resolve(cfg.face_landmarker_path),
                              lambda k: k == "face_detector.tflite",
                              lambda k: k == "face_landmarks_detector.tflite")
-            self._load_detector("flm_det", det, 128, 896, NUM_FACE_DET_KPS)
+            self._load_detector("flm_det", graphs.pop("flm_det", det), 128,
+                                896, NUM_FACE_DET_KPS)
             self._load_landmark("flm_lm", graphs.pop("flm_lm", lm), 256,
                                 NUM_FACE_LANDMARKS)
         if cfg.hand_landmarker:
             det, lm = bundle(resolve(cfg.hand_landmarker_path),
                              lambda k: "palm" in k,
                              lambda k: "landmark" in k and "palm" not in k)
-            self._load_detector("palm_det", det, 192, 2016, NUM_PALM_KPS,
+            self._load_detector("palm_det", graphs.pop("palm_det", det), 192,
+                                2016, NUM_PALM_KPS,
                                 resolve(cfg.palm_det_standin_path))
             self._load_landmark("hand_lm", graphs.pop("hand_lm", lm), 224,
                                 NUM_HAND_LANDMARKS,
@@ -312,7 +325,8 @@ class InferenceRunner:
         if cfg.person_segmenter:
             path = resolve(cfg.person_segmenter_path)
             self._load_segmenter(
-                "seg", tc.load_tflite_file(path) if path else None, 256,
+                "seg", graphs.pop(
+                    "seg", tc.load_tflite_file(path) if path else None), 256,
                 resolve(cfg.seg_standin_path))
         if graphs:
             raise ValueError(f"graphs for models not enabled: "
@@ -349,15 +363,39 @@ class InferenceRunner:
                            "using RANDOM-INIT stand-in", key, standin_path, e)
             return None
         self.trained_standin[key] = True
-        cand.pop("stem_p", None)
         return cand
 
-    def _load_detector(self, key, blob, size, num_anchors, num_kps,
+    def _compile(self, key: str, graph, **kw):
+        """Compile a net's graph (parsed ``Graph`` or .tflite bytes) for the
+        batch, NCHW, planar inputs: (fn, params)."""
+        self.real_weights[key] = True
+        if isinstance(graph, (bytes, bytearray)):
+            graph = tc.parse_tflite(bytes(graph))
+        kw.setdefault("fuse_dw_pw", self.cfg.fuse_dw_pw)
+        kw.setdefault("pack_s2d", self.cfg.pack_s2d)
+        return tc.compile_graph(graph, self.dtype, layout="NCHW",
+                                planar_inputs=True, batch_flexible=True,
+                                device=self.device, **kw)
+
+    def _load_detector(self, key, graph, size, num_anchors, num_kps,
                        standin_path=None):
-        if blob is not None:
-            raise NotImplementedError(
-                f"model {key!r}: compiled TFLite detectors are not ported "
-                "yet (ROADMAP Queue 1 item 10e)")
+        """A detector from a compiled TFLite graph (parsed ``Graph`` or
+        .tflite bytes; its input size is the graph's, its anchors the
+        stand-in's layout) or, when None, the blaze stand-in."""
+        if graph is not None:
+            fn, params = self._compile(key, graph)
+
+            def apply(p, x):
+                self.graph_calls[key] += 1
+                outs = fn(p, x)
+                # regressors: the widest output; logits: single-channel.
+                return (max(outs, key=lambda t: t.shape[-1]),
+                        min(outs, key=lambda t: t.shape[-1]))
+            apply.graph = fn.graph
+            self.params[key] = params
+            self.sizes[key] = fn.input_shapes[0][1]
+            self._det_fns[key] = apply
+            return
         box_dim = 4 + 2 * num_kps
         params = self._load_trained_standin(
             key, standin_path,
@@ -370,14 +408,25 @@ class InferenceRunner:
                                                num_kps)
         self.params[key] = _to_torch(params, self.device, self.dtype)
         self.sizes[key] = size
+        self._det_fns[key] = (lambda p, x, k=num_kps:
+                              blaze.blaze_detector_apply(p, x, k))
 
-    def _load_segmenter(self, key, blob, size, standin_path=None):
-        """The segmenter stand-in: the trained npz when it matches, else a
-        seeded init."""
-        if blob is not None:
-            raise NotImplementedError(
-                f"model {key!r}: a compiled TFLite segmenter is not ported "
-                "yet (ROADMAP Queue 1 item 10e)")
+    def _load_segmenter(self, key, graph, size, standin_path=None):
+        """The segmenter: a compiled TFLite graph (parsed ``Graph`` or
+        .tflite bytes; its largest output, NHWC, made planar) or the
+        stand-in, the trained npz when it matches, else a seeded init."""
+        if graph is not None:
+            fn, params = self._compile(key, graph)
+
+            def apply(p, x):
+                self.graph_calls[key] += 1
+                out = max(fn(p, x), key=lambda t: t.numel())
+                return out.permute(0, 3, 1, 2)
+            apply.graph = fn.graph
+            self.params[key] = params
+            self.sizes[key] = fn.input_shapes[0][1]
+            self._seg_fn = apply
+            return
         params = self._load_trained_standin(
             key, standin_path, {("head", "w"): (1, 1, 12, SEG_CLASSES)},
             {"input_size": size, "classes": SEG_CLASSES})
@@ -386,6 +435,7 @@ class InferenceRunner:
             params = blaze.init_segmenter(_seed(key), size, SEG_CLASSES)
         self.params[key] = _to_torch(params, self.device, self.dtype)
         self.sizes[key] = size
+        self._seg_fn = (lambda p, x, s=size: blaze.segmenter_apply(p, x, s))
 
     def _segment(self, params, frames_planar: Tensor
                  ) -> tuple[Tensor, Tensor]:
@@ -399,7 +449,7 @@ class InferenceRunner:
         small = warp.resize_bilinear_planar(
             frames_planar.to(self.dtype), size, size, dtype=self.dtype,
             out_dtype=torch.float32) / d255
-        conf = blaze.segmenter_apply(params, small.to(self.dtype), size)
+        conf = self._seg_fn(params, small.to(self.dtype))       # planar
         if self.cfg.seg_full_masks:
             full = warp.resize_bilinear_planar(
                 conf, self.h, self.w, dtype=torch.bfloat16,
@@ -426,12 +476,19 @@ class InferenceRunner:
             key, standin_path,
             {("head_lm", "w"): (192 * g * g, 3 * num_landmarks)},
             {"input_size": size, "num_landmarks": num_landmarks})
-        if params is None:
+        if params is not None:
+            # Re-derive the packed stem twin from the trained stem.
+            params["stem_p"] = blaze._pack_stem(params["stem"], 3, size)
+        else:
             logger.warning("model %r: using a RANDOM-INIT stand-in", key)
             params = blaze.init_blaze_landmark(_seed(key), size,
                                                num_landmarks)
         p = _to_torch(params, self.device, self.dtype)
         self.sizes[key] = size
+        # Packed crops feed the fused stem, or else the packed stem twin.
+        if self.cfg.use_pallas and (bool(self.cfg.pack_s2d)
+                                    or self.cfg.fused_stem):
+            self._packed_in[key] = True
         if want_stem:
             self._stem_src[key] = {"kind": "standin"}
         if fused_trunk:
@@ -457,18 +514,21 @@ class InferenceRunner:
         conv (+PReLU) is split off and runs as a stem kernel on the packed
         crops; with the fused trunk as well its bottleneck units fuse into
         K5/K6 ops (``fused_bn_min_hw`` gates them by spatial size) and the
-        split-off stem goes through K3."""
-        self.real_weights[key] = True
+        split-off stem goes through K3.  Without the fused stem,
+        ``pack_s2d`` (with ``use_pallas``) compiles the graph to take its
+        crop packed, as K1 emits it."""
         if isinstance(graph, (bytes, bytearray)):
             graph = tc.parse_tflite(bytes(graph))
-        fn, params = tc.compile_graph(
-            graph, self.dtype, layout="NCHW", planar_inputs=True,
-            external_stem=want_stem, fuse_bn=fused_trunk,
-            fuse_bn_min_hw=self.cfg.fused_bn_min_hw, batch_flexible=True,
-            device=self.device)
+        packed_in = (bool(self.cfg.pack_s2d) and self.cfg.use_pallas
+                     and not want_stem)
+        fn, params = self._compile(
+            key, graph, pack_s2d=0 if want_stem else self.cfg.pack_s2d,
+            packed_inputs=packed_in, external_stem=want_stem,
+            fuse_bn=fused_trunk, fuse_bn_min_hw=self.cfg.fused_bn_min_hw)
         stem_meta = getattr(fn, "external_stem_meta", None)
         if stem_meta is not None:
             size = stem_meta["in_size"]
+            self._packed_in[key] = True
             self._stem_src[key] = {"kind": "external",
                                    "params": stem_meta["params"]}
             w_stem = params[stem_meta["params"]["w"]]      # HWIO
@@ -482,6 +542,9 @@ class InferenceRunner:
                                            wspec=wspec)
         else:
             size = fn.input_shapes[0][1]
+            if packed_in and fn.input_shapes[0][3] == 12:
+                self._packed_in[key] = True
+                size *= 2
 
         # Output roles are resolved by size plus, when two outputs could
         # hold the landmarks, a one-time probe: converters order outputs
@@ -510,6 +573,7 @@ class InferenceRunner:
 
         def apply_batch(p, x, nl=num_landmarks, li=lm_idx,
                         si=tuple(scalar_idx)):
+            self.graph_calls[key] += 1
             outs = fn(p, x)
             b = x.shape[0]
             flat = [o.reshape(b, -1) for o in outs]
@@ -570,8 +634,7 @@ class InferenceRunner:
         if in_range == "pm1":
             x = x * 2.0 - 1.0
         x = x.permute(0, 3, 1, 2).to(self.dtype)
-        reg, log = blaze.blaze_detector_apply(params, x,
-                                              decode_cfg.num_keypoints)
+        reg, log = self._det_fns[key](params, x)
         raw = detection.decode(decode_cfg, reg.to(torch.float32),
                                log.to(torch.float32), anchors)
         nms = detection.weighted_nms(decode_cfg, raw, max_out)
@@ -699,14 +762,13 @@ class InferenceRunner:
 
     def _landmark_from_crop(self, key: str, params, crops: Tensor
                             ) -> tuple[Tensor, Tensor]:
-        """Net on plain, already scaled planar crops [B, 3, S, S] (no
-        packed crops: float frames, or ``use_pallas`` off)."""
+        """Net on already scaled planar crops without a fused stem: plain
+        [B, 3, S, S] (float frames, ``use_pallas`` off, the per-crop
+        rotation modes) or, for a net that takes them, K1's packed crops
+        [B, 12, S/2, S/2].  A plain crop for a net that takes packed crops
+        is packed here."""
         crops = crops.to(self.dtype)
-        if key not in self._graph_fns:
-            lm, presence, _aux = blaze.blaze_landmark_apply(
-                params, crops, self.sizes[key])
-            return lm, presence[:, 0].to(torch.float32)
-        if key in self._stem_src:
+        if self._stem_src.get(key, {}).get("kind") == "external":
             # The compiled graph was re-rooted at its stem's output: run
             # the stem here as a plain conv (+PReLU) before entering it.
             w, bi, al = self._stem_operands(key, params)
@@ -714,6 +776,12 @@ class InferenceRunner:
             al = al.to(y.dtype).reshape(-1, 1, 1)
             return self._landmark_from_stem(
                 key, params, torch.where(y >= 0, y, al * y))
+        if self._packed_in.get(key) and crops.shape[1] == 3:
+            crops = warp_kernel.pack_s2d(crops)
+        if key not in self._graph_fns:
+            lm, presence, _aux = blaze.blaze_landmark_apply(
+                params, crops, self.sizes[key])
+            return lm, presence[:, 0].to(torch.float32)
         lm, presence, _aux = self._graph_fns[key](params, crops)
         return lm, presence.to(torch.float32)
 
@@ -730,9 +798,9 @@ class InferenceRunner:
                    ) -> tuple[Tensor, Tensor]:
         """Landmark net over a batch of crops -> (raw landmarks [B, 3L],
         presence f32 [B]).  ``crops``: 2x2-packed, pre-scaled crops
-        [B, 12, S/2, S/2] (``packed``: nets with a fused stem), or planar
-        pre-scaled crops [B, 3, S, S]."""
-        if packed:
+        [B, 12, S/2, S/2] (``packed``: K1's crops of a net that takes them
+        packed), or planar pre-scaled crops [B, 3, S, S]."""
+        if packed and key in self._stem_src:
             stems = self._fused_stem_batch(key, params, crops)
             if self.cfg.fused_trunk:
                 return self._fused_trunk_batch(key, params, stems)
@@ -778,11 +846,12 @@ class InferenceRunner:
         """Shear crops of ``rects`` [k, 5] of NHWC frames [k, H, W, 3] (or
         of rects [S, n, 5] of frames [S, 1, H, W, 3]) in K1's output form
         for the same net: planar, scaled to [0, 1], 2x2 packed for a net
-        with a fused stem, in the compute dtype -> [k or S*n, C, s', s']."""
+        that takes packed crops, in the compute dtype -> [k or S*n, C, s',
+        s']."""
         crop = warp.crop_rect_shear(frames, warp.arr_rect(rects),
                                     self.sizes[key])
         x = crop.flatten(0, -4).permute(0, 3, 1, 2) / 255.0
-        if key in self._stem_src:
+        if self._packed_in.get(key):
             x = warp_kernel.pack_s2d(x)
         return x.to(self.dtype)
 
@@ -790,12 +859,12 @@ class InferenceRunner:
                   covers: dict) -> dict:
         """One K1 launch for every cover crop of every stream: {key: crops
         [S*n, C, s', s']} (pre-scaled, in the compute dtype, packed for a
-        net with a fused stem)."""
+        net that takes packed crops)."""
         sizes, packs, parts = [], [], []
         for key, cov in covers.items():
             n = cov.shape[1] if cov.ndim == 3 else 1
             sizes += [self.sizes[key]] * n
-            packs += [2 if key in self._stem_src else 1] * n
+            packs += [2 if self._packed_in.get(key) else 1] * n
             parts.append(cov.reshape(cov.shape[0], n, 5)[..., :4])
         planar = (frames_rgb if planar_in
                   else frames_rgb.permute(0, 3, 1, 2).contiguous())
@@ -849,7 +918,7 @@ class InferenceRunner:
                 frames = nhwc_at(None)
                 return {k: (self._shear_crops(
                     k, frames[:, None] if r.ndim == 3 else frames, r), r,
-                    k in self._stem_src) for k, r in raws.items()}
+                    bool(self._packed_in.get(k))) for k, r in raws.items()}
             gated = {k: g for k, g in gated.items() if counts[k]}
         crops = self._k1_crops(frames_rgb, planar_in, covers)
         prect = dict(covers)
@@ -869,7 +938,8 @@ class InferenceRunner:
             pf = prect[k].reshape(-1, 5).clone()
             pf[order] = torch.where(served[:, None], rr, pf[order])
             prect[k] = pf.reshape(raws[k].shape)
-        return {k: (crops[k], prect[k], k in self._stem_src) for k in raws}
+        return {k: (crops[k], prect[k], bool(self._packed_in.get(k)))
+                for k in raws}
 
     # -- predict -------------------------------------------------------------
 

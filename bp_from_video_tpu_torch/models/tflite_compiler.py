@@ -13,16 +13,20 @@ Only ``parse_tflite`` needs TensorFlow (its generated flatbuffer schema),
 imported when it is first called; ``compile_graph`` takes a ``Graph`` from
 any source (``models/mesh_graph.py`` makes one with numpy alone).
 
-Graph passes: ``_extract_stem`` splits a leading 3x3/2 image conv (+PReLU)
-off for the fused stem kernels; ``fuse_bottlenecks`` rewrites the face-mesh
-residual unit into a ``PALLAS_BN`` op (kernel K5, ``kernels/bottleneck``)
-and ``chain_bottlenecks`` merges a stage of them into ``PALLAS_BN_CHAIN``
-(kernel K6).  The op names are the reference package's, kept so that the
-two packages' graphs compare op for op.
-
-Not ported (they raise ``NotImplementedError``): ``fuse_dw_pw_pairs`` and
-``space_to_depth_pack`` with ``packed_inputs`` and its pseudo-ops
-``CHANNEL_GROUP_MAX`` / ``PACKED_CHANNEL_PAD`` (ROADMAP Queue 1 item 10).
+Graph passes, applied in this order by ``compile_graph``:
+``_extract_stem`` splits a leading 3x3/2 image conv (+PReLU) off for the
+fused stem kernels; ``fuse_bottlenecks`` rewrites the face-mesh residual
+unit into a ``PALLAS_BN`` op (kernel K5, ``kernels/bottleneck``) and
+``chain_bottlenecks`` merges a stage of them into ``PALLAS_BN_CHAIN``
+(kernel K6); ``fuse_dw_pw_pairs`` composes depthwise -> 1x1 conv pairs into
+dense convs; ``space_to_depth_pack`` stores large activations 2x2
+space-to-depth packed (with ``packed_inputs`` the graph takes its image
+packed, as kernel K1 emits it with ``pack=2``) through the pseudo-ops
+``SPACE_TO_DEPTH``, ``DEPTH_TO_SPACE``, ``CHANNEL_GROUP_MAX`` and
+``PACKED_CHANNEL_PAD``.  Each pass returns a new ``Graph`` that shares the
+tensor storage.  The op names and appended constants' names are the
+reference package's, kept so that the two packages' graphs compare op for
+op.
 """
 
 from __future__ import annotations
@@ -38,9 +42,13 @@ import torch.nn.functional as F
 
 from bp_from_video_tpu_torch import resolve_device
 from bp_from_video_tpu_torch.kernels import bottleneck as bn_kernel
+from bp_from_video_tpu_torch.kernels import warp as warp_kernel
 from bp_from_video_tpu_torch.models import warp
 
 Tensor = torch.Tensor
+# space_to_depth_pack's pseudo-ops that the executor runs in planar storage
+# (layout "NCHW") alone.
+PLANAR_ONLY = frozenset({"CHANNEL_GROUP_MAX", "PACKED_CHANNEL_PAD"})
 
 # TensorFlow is needed only to parse a flatbuffer, never to run a graph.
 _schema = None
@@ -186,7 +194,9 @@ def parse_tflite(data: bytes) -> Graph:
     list).  Needs TensorFlow's schema bindings."""
     schema_fb = _schema_fb()
     model = schema_fb.Model.GetRootAsModel(data, 0)
-    sg = model.Subgraphs(0)
+    sg = model.Subgraphs(0) if model.SubgraphsLength() else None
+    if sg is None:
+        raise ValueError("not a TFLite flatbuffer: no subgraph")
     tensors: list[TensorInfo] = []
     for i in range(sg.TensorsLength()):
         t = sg.Tensors(i)
@@ -264,6 +274,12 @@ class _GraphEdit:
                                        np.ascontiguousarray(arr), None))
         return len(self.tensors) - 1
 
+    def add_tensor(self, name: str, shape, data=None) -> int:
+        self.tensors.append(TensorInfo(
+            name, tuple(int(x) for x in shape), np.float32,
+            None if data is None else np.ascontiguousarray(data), None))
+        return len(self.tensors) - 1
+
     def sole_consumer(self, t: int) -> tuple[int, "OpNode | None"]:
         cons = self.consumers.get(t, [])
         if len(cons) == 1 and t not in self.graph.outputs:
@@ -272,16 +288,69 @@ class _GraphEdit:
 
 
 def fuse_dw_pw_pairs(graph: Graph) -> Graph:
-    raise NotImplementedError(
-        "fuse_dw_pw_pairs (depthwise -> 1x1 pair composition): not ported "
-        "(ROADMAP Queue 1 item 10)")
+    """Fold DEPTHWISE_CONV_2D -> 1x1 CONV_2D pairs into single dense convs.
 
+    The MediaPipe graphs put no activation between a depthwise conv and the
+    pointwise conv after it, so the pair is a composition of two linear
+    maps and folds exactly into one dense (kh, kw) convolution:
 
-def space_to_depth_pack(graph: Graph, min_hw: int = 64,
-                        packed_inputs: bool = False) -> Graph:
-    raise NotImplementedError(
-        "space_to_depth_pack / packed_inputs: not ported (ROADMAP Queue 1 "
-        "item 10)")
+        W[o,u,v,c] = pw[o,c] * dw[u,v,c]      b[o] = pw_b[o] + sum_c pw[o,c] dw_b[c]
+
+    The composed conv reads the activation once and never writes the
+    depthwise output.  Composed weights are appended as constants
+    ``fused_dwpw_w_{i}`` / ``fused_dwpw_b_{i}`` (``i`` the depthwise op's
+    index)."""
+    ge = _GraphEdit(graph)
+    consumers, tensors = ge.consumers, ge.tensors
+    const, add_const = ge.const, ge.add_const
+
+    new_ops: list[OpNode] = []
+    skip: set[int] = set()
+    for i, op in enumerate(graph.ops):
+        if i in skip:
+            continue
+        if (op.opcode == "DEPTHWISE_CONV_2D"
+                and op.options.get("activation") == "NONE"
+                and op.options.get("depth_multiplier") == 1
+                and op.options.get("dilation") == (1, 1)):
+            out = op.outputs[0]
+            cons = consumers.get(out, [])
+            if len(cons) == 1 and out not in graph.outputs:
+                nxt = graph.ops[cons[0]]
+                dw_w = const(op.inputs[1])
+                pw_w = const(nxt.inputs[1]) if nxt.opcode == "CONV_2D" else None
+                if (nxt.opcode == "CONV_2D" and nxt.inputs[0] == out
+                        and nxt.options.get("stride") == (1, 1)
+                        and nxt.options.get("dilation") == (1, 1)
+                        and dw_w is not None and pw_w is not None
+                        and pw_w.shape[1] == pw_w.shape[2] == 1):
+                    kh, kw = dw_w.shape[1], dw_w.shape[2]
+                    c = dw_w.shape[3]
+                    o_ = pw_w.shape[0]
+                    # [o, kh, kw, c]: the TFLite CONV_2D weight layout.
+                    comp = (pw_w.reshape(o_, 1, 1, c).astype(np.float32)
+                            * dw_w.reshape(1, kh, kw, c).astype(np.float32))
+                    dw_b = const(op.inputs[2]) if len(op.inputs) > 2 else None
+                    pw_b = const(nxt.inputs[2]) if len(nxt.inputs) > 2 else None
+                    bias = np.zeros((o_,), np.float32)
+                    if pw_b is not None:
+                        bias += pw_b.astype(np.float32)
+                    if dw_b is not None:
+                        bias += pw_w.reshape(o_, c).astype(np.float32) @ (
+                            dw_b.astype(np.float32))
+                    w_idx = add_const(f"fused_dwpw_w_{i}", comp)
+                    b_idx = add_const(f"fused_dwpw_b_{i}", bias)
+                    new_ops.append(OpNode(
+                        "CONV_2D", [op.inputs[0], w_idx, b_idx],
+                        list(nxt.outputs),
+                        dict(stride=op.options["stride"], dilation=(1, 1),
+                             padding=op.options["padding"],
+                             activation=nxt.options.get("activation",
+                                                        "NONE"))))
+                    skip.add(cons[0])
+                    continue
+        new_ops.append(op)
+    return Graph(tensors, new_ops, list(graph.inputs), list(graph.outputs))
 
 
 def fuse_bottlenecks(graph: Graph, min_hw: int = 0) -> Graph:
@@ -490,6 +559,242 @@ def _tflite_pad(in_size: int, k: int, s: int, padding) -> tuple[int, int]:
     return (lo, total - lo)
 
 
+def _pack_axis(k: int, pad: tuple[int, int], s: int, f_out: int,
+               in_size: int, out_size: int) -> tuple[int, int, tuple[int, int]]:
+    """Packed-domain kernel start, extent and explicit padding for one
+    spatial dim (shared by ``_pack_conv_weight`` and the stand-ins' packed
+    stems): (r_min, k', (pad_lo, pad_hi))."""
+    sp = s * f_out // 2
+    lo, _ = pad
+    ts = [s * d + u - lo for d in range(f_out) for u in range(k)]
+    r_min = min(t // 2 for t in ts)
+    r_max = max(t // 2 for t in ts)
+    kp = r_max - r_min + 1
+    plo = -r_min
+    packed_in = in_size // 2
+    phi = max(0, sp * (out_size - 1) + kp - plo - packed_in)
+    return r_min, kp, (plo, phi)
+
+
+def _pack_conv_weight(w: np.ndarray, b: np.ndarray | None, s: int,
+                      pads: tuple[tuple[int, int], tuple[int, int]],
+                      f_out: int, in_hw: tuple[int, int],
+                      out_hw: tuple[int, int]):
+    """Re-scatter a conv weight [O, kh, kw, C] into the 2x2 space-to-depth
+    packed domain.
+
+    Packed tensors hold x[2i+a, 2j+b, c] at X[i, j, (a*2+b)*C + c].  A
+    (kh, kw, stride s) conv becomes a (kh', kw', stride s*f_out/2) conv on
+    the packed tensor: tap offset t = s*dy + u - pad_lo maps to packed tap
+    t//2, sub-position t%2.  ``f_out`` 2 emits a packed output (channels
+    (dy*2+dx)*O + o), 1 an unpacked one.
+
+    Returns (w' [O', kh', kw', 4C], b' [O'], stride', explicit padding)."""
+    o_, kh, kw, c = w.shape
+    assert s * f_out in (2, 4), "unsupported stride/packing combination"
+    sp = s * f_out // 2
+    ry0, khp, pad_y = _pack_axis(kh, pads[0], s, f_out, in_hw[0], out_hw[0])
+    rx0, kwp, pad_x = _pack_axis(kw, pads[1], s, f_out, in_hw[1], out_hw[1])
+
+    wp = np.zeros((f_out * f_out * o_, khp, kwp, 4 * c), np.float32)
+    for dy in range(f_out):
+        for dx in range(f_out):
+            g = dy * f_out + dx
+            for u in range(kh):
+                ty = s * dy + u - pads[0][0]
+                for v in range(kw):
+                    tx = s * dx + v - pads[1][0]
+                    gi = (ty % 2) * 2 + (tx % 2)
+                    wp[g * o_:(g + 1) * o_, ty // 2 - ry0, tx // 2 - rx0,
+                       gi * c:(gi + 1) * c] = w[:, u, v, :]
+    bp = None if b is None else np.tile(b.astype(np.float32), f_out * f_out)
+    return wp, bp, sp, (pad_y, pad_x)
+
+
+def space_to_depth_pack(graph: Graph, min_hw: int = 64,
+                        packed_inputs: bool = False) -> Graph:
+    """Store every activation with H, W >= ``min_hw`` 2x2 space-to-depth
+    packed ([H/2, W/2, 4C]) and rewrite the ops between them: convs (weights
+    re-scattered by ``_pack_conv_weight``), PRELU, ADD, 2x2/2 MAX_POOL
+    (``CHANNEL_GROUP_MAX``: the max over a packed pixel's four
+    sub-positions) and channel PAD (``PACKED_CHANNEL_PAD``).  Any other op
+    runs unpacked: a ``DEPTH_TO_SPACE`` materializes its input on demand.
+
+    ``packed_inputs``: the caller feeds 4-D image inputs already packed
+    (kernel K1's ``pack=2`` output): the graph input becomes a packed-shape
+    tensor and the original materializes only on demand.  Shapes are the
+    graph's static batch-1 shapes; the pseudo-ops take the batch from the
+    tensor they run on."""
+    ge = _GraphEdit(graph)
+    tensors = ge.tensors
+    const, add_tensor = ge.const, ge.add_tensor
+
+    new_ops: list[OpNode] = []
+    packed_of: dict[int, int] = {}    # orig idx -> packed tensor idx
+    unpacked_of: dict[int, int] = {}  # packed-only outputs -> unpacked idx
+
+    def shape_of(t: int):
+        return tensors[t].shape
+
+    def packable(t: int) -> bool:
+        s = shape_of(t)
+        return (len(s) == 4 and s[0] == 1 and s[1] >= min_hw
+                and s[1] % 2 == 0 and s[2] % 2 == 0)
+
+    def get_packed(t: int) -> int | None:
+        if t in packed_of:
+            return packed_of[t]
+        if t not in produced or not packable(t):
+            return None
+        _, h, w, c = shape_of(t)
+        p = add_tensor(f"{tensors[t].name}_s2d", (1, h // 2, w // 2, 4 * c))
+        new_ops.append(OpNode("SPACE_TO_DEPTH", [t], [p], {"block": 2}))
+        packed_of[t] = p
+        return p
+
+    def ensure_unpacked(t: int) -> int:
+        if t in unpacked_of:
+            return unpacked_of[t]
+        if t in packed_of and t not in produced:
+            u = add_tensor(f"{tensors[t].name}_d2s", shape_of(t))
+            new_ops.append(OpNode("DEPTH_TO_SPACE", [packed_of[t]], [u],
+                                  {"block": 2}))
+            unpacked_of[t] = u
+            return u
+        return t
+
+    produced: set[int] = set(graph.inputs)  # tensors with an unpacked copy
+    new_inputs = list(graph.inputs)
+    if packed_inputs:
+        for i, t in enumerate(graph.inputs):
+            if packable(t):
+                _, h, w, c = shape_of(t)
+                p = add_tensor(f"{tensors[t].name}_pin",
+                               (1, h // 2, w // 2, 4 * c))
+                packed_of[t] = p
+                new_inputs[i] = p
+                produced.discard(t)
+    for idx, info in enumerate(tensors):
+        if info.data is not None:
+            produced.add(idx)
+    produced.update(ge.dequant_of.keys())
+
+    for op in graph.ops:
+        name, ins, outs = op.opcode, op.inputs, op.outputs
+        out0 = outs[0] if outs else -1
+
+        if name == "CONV_2D" and len(ins) >= 2:
+            pin = get_packed(ins[0])
+            w = const(ins[1])
+            osh = shape_of(out0)
+            stride = op.options["stride"]
+            if (pin is not None and w is not None and len(osh) == 4
+                    and op.options.get("dilation") == (1, 1)
+                    and stride in ((1, 1), (2, 2))):
+                ish = shape_of(ins[0])
+                f_out = 2 if (osh[1] >= min_hw and osh[1] % 2 == 0
+                              and osh[2] % 2 == 0) else 1
+                s = stride[0]
+                if s * f_out in (2, 4):
+                    b = const(ins[2]) if len(ins) > 2 and ins[2] >= 0 else None
+                    pads = (_tflite_pad(ish[1], w.shape[1], s,
+                                        op.options["padding"]),
+                            _tflite_pad(ish[2], w.shape[2], s,
+                                        op.options["padding"]))
+                    out_hw = ((osh[1] // 2, osh[2] // 2) if f_out == 2
+                              else (osh[1], osh[2]))
+                    wp, bp, sp, padp = _pack_conv_weight(
+                        w, b, s, pads, f_out, (ish[1], ish[2]), out_hw)
+                    w_idx = add_tensor(f"s2d_w_{out0}", wp.shape, wp)
+                    b_idx = (-1 if bp is None
+                             else add_tensor(f"s2d_b_{out0}", bp.shape, bp))
+                    if f_out == 2:
+                        p_out = add_tensor(f"{tensors[out0].name}_p",
+                                           (1, osh[1] // 2, osh[2] // 2,
+                                            4 * osh[3]))
+                        packed_of[out0] = p_out
+                        dst = p_out
+                    else:
+                        dst = out0
+                        produced.add(out0)
+                    new_ops.append(OpNode(
+                        "CONV_2D", [pin, w_idx, b_idx], [dst],
+                        dict(stride=(sp, sp), dilation=(1, 1), padding=padp,
+                             activation=op.options.get("activation",
+                                                       "NONE"))))
+                    continue
+
+        elif name == "PRELU" and len(ins) == 2:
+            alpha = const(ins[1])
+            pin = get_packed(ins[0]) if alpha is not None else None
+            if pin is not None:
+                at = np.tile(alpha.reshape(-1), 4)
+                a_idx = add_tensor(f"s2d_alpha_{out0}", at.shape, at)
+                p_out = add_tensor(f"{tensors[out0].name}_p",
+                                   shape_of(pin))
+                packed_of[out0] = p_out
+                new_ops.append(OpNode("PRELU", [pin, a_idx], [p_out],
+                                      dict(op.options)))
+                continue
+
+        elif name == "ADD" and len(ins) == 2:
+            if (shape_of(ins[0]) == shape_of(ins[1])
+                    and const(ins[0]) is None and const(ins[1]) is None
+                    and (ins[0] in packed_of or ins[1] in packed_of)):
+                pa, pb = get_packed(ins[0]), get_packed(ins[1])
+                if pa is not None and pb is not None:
+                    p_out = add_tensor(f"{tensors[out0].name}_p",
+                                       shape_of(pa))
+                    packed_of[out0] = p_out
+                    new_ops.append(OpNode("ADD", [pa, pb], [p_out],
+                                          dict(op.options)))
+                    continue
+
+        elif name == "MAX_POOL_2D":
+            pin = packed_of.get(ins[0])
+            if (pin is not None
+                    and op.options.get("filter") == (2, 2)
+                    and op.options.get("stride") == (2, 2)):
+                # Pool output (i, j) is the max over the 4 sub-positions of
+                # packed pixel (i, j): a channel-group max.
+                new_ops.append(OpNode("CHANNEL_GROUP_MAX", [pin], [out0],
+                                      {"groups": 4}))
+                produced.add(out0)
+                continue
+
+        elif name == "PAD":
+            padv = const(ins[1])
+            pin = (get_packed(ins[0])
+                   if (padv is not None and padv.shape == (4, 2)
+                       and not padv[:3].any() and padv[3, 0] == 0) else None)
+            if pin is not None:
+                c_old = shape_of(ins[0])[3]
+                p_out = add_tensor(f"{tensors[out0].name}_p",
+                                   (1,) + shape_of(pin)[1:3]
+                                   + (4 * shape_of(out0)[3],))
+                packed_of[out0] = p_out
+                new_ops.append(OpNode(
+                    "PACKED_CHANNEL_PAD", [pin], [p_out],
+                    {"groups": 4, "channels": int(c_old),
+                     "pad": int(padv[3, 1])}))
+                continue
+
+        # Fallback: the op runs unpacked, packed-only inputs materialized.
+        rewired = [ensure_unpacked(t) if t >= 0 else t for t in ins]
+        new_ops.append(OpNode(name, rewired, list(outs), op.options))
+        for t in outs:
+            produced.add(t)
+
+    # Graph outputs exist unpacked.
+    tail: list[OpNode] = []
+    for t in graph.outputs:
+        if t in packed_of and t not in produced:
+            tail.append(OpNode("DEPTH_TO_SPACE", [packed_of[t]], [t],
+                               {"block": 2}))
+    new_ops.extend(tail)
+    return Graph(tensors, new_ops, new_inputs, list(graph.outputs))
+
+
 def _dequant(info: TensorInfo, arr: np.ndarray) -> np.ndarray:
     if arr.dtype in (np.float16,):
         return arr.astype(np.float32)
@@ -615,9 +920,14 @@ def _act(x: Tensor, name: str) -> Tensor:
 
 def _pad_same(x: Tensor, kh: int, kw: int, stride, padding, value=0.0
               ) -> Tensor:
-    """Planar x padded by TFLite's explicit SAME/VALID amounts."""
-    ph = _tflite_pad(x.shape[2], kh, stride[0], padding)
-    pw = _tflite_pad(x.shape[3], kw, stride[1], padding)
+    """Planar x padded by TFLite's SAME/VALID amounts, or by an explicit
+    per-axis ``((top, bottom), (left, right))`` (``space_to_depth_pack``'s
+    packed convs)."""
+    if isinstance(padding, tuple):
+        ph, pw = padding
+    else:
+        ph = _tflite_pad(x.shape[2], kh, stride[0], padding)
+        pw = _tflite_pad(x.shape[3], kw, stride[1], padding)
     if any(ph + pw):
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value)
     return x
@@ -653,22 +963,37 @@ def compile_graph(graph: Graph, dtype=torch.float32, layout: str = "NHWC",
     are emitted in the compute dtype (one rounding after f32 accumulation).
     ``batch_flexible`` lets the graph's static batch-1 reshapes follow the
     real batch, so one compiled ``fn`` serves any leading batch.
+
+    Passes, in this order: ``external_stem`` (``_extract_stem``),
+    ``fuse_bn`` (``fuse_bottlenecks`` + ``chain_bottlenecks``, units of at
+    least ``fuse_bn_min_hw``), ``fuse_dw_pw`` (``fuse_dw_pw_pairs``),
+    ``pack_s2d`` (``space_to_depth_pack`` with that ``min_hw`` and
+    ``packed_inputs``), then dead-op elimination.  A packed graph that
+    pools or pads channels (``PLANAR_ONLY`` ops) needs ``layout="NCHW"``.
     """
-    if fuse_dw_pw:
-        fuse_dw_pw_pairs(graph)
-    if pack_s2d or packed_inputs:
-        space_to_depth_pack(graph)
     device = resolve_device(device)
     stem_meta = None
     if external_stem:
         graph, stem_meta = _extract_stem(graph)
     if fuse_bn:
+        # Before fuse_dw_pw: the bottleneck matcher claims its dw -> 1x1-up
+        # pairs before the generic pair fusion could rewrite them.
         graph = fuse_bottlenecks(graph, min_hw=fuse_bn_min_hw)
         # DCE first: dead DEQUANTIZE ops of the fused weights sit between
         # consecutive PALLAS_BN ops and would break the adjacency scan.
         graph = chain_bottlenecks(_dce(graph))
-    if fuse_bn or stem_meta is not None:
+    if fuse_dw_pw:
+        graph = fuse_dw_pw_pairs(graph)
+    if pack_s2d:
+        graph = space_to_depth_pack(graph, min_hw=pack_s2d,
+                                    packed_inputs=packed_inputs)
+    if fuse_bn or fuse_dw_pw or pack_s2d or stem_meta is not None:
         graph = _dce(graph)
+    if layout != "NCHW" and any(op.opcode in PLANAR_ONLY for op in graph.ops):
+        raise ValueError(
+            f"{sorted(PLANAR_ONLY)} (space_to_depth_pack's packed 2x2 pool "
+            "and channel pad) run in planar storage only: compile with "
+            "layout='NCHW'")
 
     # Fold constant-input DEQUANTIZE ops.
     dequant_of: dict[int, int] = {}
@@ -1009,19 +1334,42 @@ def compile_graph(graph: Graph, dtype=torch.float32, layout: str = "NHWC",
                 if len(ins) > 2 and ins[2] >= 0:
                     y = y + get(ins[2])
                 put(outs[0], _act(y, o["activation"]))
+            # --- space_to_depth_pack's pseudo-ops: packed channel
+            # (a*2+b)*C + c holds pixel (2i+a, 2j+b) of channel c; planar
+            # under NCHW (K1's pack=2 layout); the two packing ops also
+            # NHWC, PLANAR_ONLY never ---
             elif name == "SPACE_TO_DEPTH":
-                x = get(ins[0])
-                n, h, w, c = x.shape
-                y = x.reshape(n, h // 2, 2, w // 2, 2, c)
-                y = y.permute(0, 1, 3, 2, 4, 5)
-                put(outs[0], y.reshape(n, h // 2, w // 2, 4 * c))
+                if nchw:
+                    put(outs[0], warp_kernel.pack_s2d(get_planar(ins[0])),
+                        True)
+                else:
+                    x = get(ins[0])
+                    n, h, w, c = x.shape
+                    y = x.reshape(n, h // 2, 2, w // 2, 2, c)
+                    y = y.permute(0, 1, 3, 2, 4, 5)
+                    put(outs[0], y.reshape(n, h // 2, w // 2, 4 * c))
             elif name == "DEPTH_TO_SPACE":
-                x = get(ins[0])
-                n, h, w, c4 = x.shape
-                c = c4 // 4
-                y = x.reshape(n, h, w, 2, 2, c)
-                y = y.permute(0, 1, 3, 2, 4, 5)
-                put(outs[0], y.reshape(n, 2 * h, 2 * w, c))
+                if nchw:
+                    put(outs[0], warp_kernel.unpack_s2d(get_planar(ins[0])),
+                        True)
+                else:
+                    x = get(ins[0])
+                    n, h, w, c4 = x.shape
+                    c = c4 // 4
+                    y = x.reshape(n, h, w, 2, 2, c)
+                    y = y.permute(0, 1, 3, 2, 4, 5)
+                    put(outs[0], y.reshape(n, 2 * h, 2 * w, c))
+            elif name == "CHANNEL_GROUP_MAX":       # planar only
+                g = o["groups"]
+                x = get_planar(ins[0])
+                n, cg, h, w = x.shape
+                put(outs[0], x.reshape(n, g, cg // g, h, w).amax(1), True)
+            elif name == "PACKED_CHANNEL_PAD":      # planar only
+                g, c_old, padc = o["groups"], o["channels"], o["pad"]
+                x = get_planar(ins[0])
+                n, _, h, w = x.shape
+                y = F.pad(x.reshape(n, g, c_old, h, w), (0, 0, 0, 0, 0, padc))
+                put(outs[0], y.reshape(n, g * (c_old + padc), h, w), True)
             elif name == "PALLAS_BN":
                 # Fused bottleneck residual unit (fuse_bottlenecks): K5.
                 x = get_planar(ins[0]).to(dtype)
@@ -1040,10 +1388,6 @@ def compile_graph(graph: Graph, dtype=torch.float32, layout: str = "NHWC",
                     env[ins[4]].to(dtype), env[ins[5]], env[ins[6]],
                     last_act=o["last_act"])
                 put(outs[0], y, True)
-            elif name in ("CHANNEL_GROUP_MAX", "PACKED_CHANNEL_PAD"):
-                raise NotImplementedError(
-                    f"{name} (a space_to_depth_pack pseudo-op): not ported "
-                    "(ROADMAP Queue 1 item 10)")
             else:
                 raise NotImplementedError(f"TFLite op {name}")
         return [get(i) for i in graph.outputs]

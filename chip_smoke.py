@@ -8,11 +8,11 @@ Phases (each fatal on failure):
    (one ``nvcc`` per source, all started together);
 2. hold each of the six kernels against its plain PyTorch version on the
    card at the flagship shapes (64 streams of 480x640, bf16; K3 at its 11
-   launch shapes; K5/K6 at all seven face-mesh stage shapes; both SASS
-   checked for tensor-core HMMA instructions; K4 through both its entries,
-   at the flagship ROI sizes, also weighted by the segmenter's skin view
-   read in place), and time the kernel, the plain version and a
-   PyTorch yardstick with CUDA events;
+   launch shapes; K5/K6 at all seven face-mesh stage shapes, K6 also at
+   3l's batch of 8; both SASS checked for tensor-core HMMA instructions;
+   K4 through both its entries, at the flagship ROI sizes, also weighted
+   by the segmenter's skin view read in place), and time the kernel, the
+   plain version and a PyTorch yardstick with CUDA events;
 3. run the flagship ``Engine.batch_step`` (``flagship_config()``) over a
    synthetic pulsing clip long enough to fill the 250-sample ring, with the
    kernels' launch counters set to 0 just before and read just after:
@@ -46,15 +46,30 @@ Phases (each fatal on failure):
    the sub-batch's tilted stream (crops within a bf16 ulp) and untouched
    streams, the whole-batch shear within a mean 3 px of ``shear``; and the
    shear crop (cuFFT and DFT matmuls), one shear pass, the exact gather
-   and the BP head timed alone;
+   and the BP head timed alone; (3l) ``multistream`` at 8 streams of
+   person scenes with every net compiled that the repo has a graph for
+   (``compiled_graphs``: numpy-built face and palm detectors, the face
+   mesh, the segmenter; the hand net a stand-in), every stream composed,
+   130 steps, then 20 with ``fuse_dw_pw`` and ``pack_s2d=64``: each
+   compiled net ran, K1/K3/K4 (weighted)/K6 a step, host syncs, the
+   segmenter's confidences summing to 1, the face ROI's BPM; (3m) the
+   flagship with the fused stem and trunk off, ``fuse_dw_pw`` and
+   ``pack_s2d=64``, 130 steps with stand-ins (K1 packs their crops for the
+   packed stem twins) and with the compiled mesh taking packed crops, then
+   both unpacked as a control, and each landmark net's device time alone,
+   packed and unpacked (3l and 3m also log BPM at step 60, not held);
 4. run a small f32 config on the card and on the CPU (plain versions) over
    the same clips, with stand-ins, with a compiled face graph, with both
-   earlier presets, with ``multistream`` (plain and lagged, composed) and
+   earlier presets, with ``multistream`` (plain and lagged, composed),
    through ``exact``, ``shear`` and ``hybrid`` (upright, whole-batch and
-   sub-batch) with the track pinned: BPM equal (from row 10 on the
-   rotation runs), PTT within one sample period, landmarks within 1 px,
-   composed images within the renderer's tolerance; the FIR taps designed
-   on the card beside those designed on the CPU;
+   sub-batch) with the track pinned, on 3m's packed paths (landmarks
+   within 1 px) and with 3l's compiled nets (the face detectors firing on
+   one anchor, a reduced mesh: boxes and landmarks within 1 px every step,
+   segmenter confidences within 1e-4 but where the bf16 upsample rounds):
+   BPM equal (from row 10 on the rotation runs), PTT within one sample
+   period, landmarks within 1 px, composed images within the renderer's
+   tolerance; the FIR taps designed on the card beside those designed on
+   the CPU;
 5. the host runtime on the card, through the normal entry points: 8 MJPG
    files of 260 person scenes at 480x640 written with ``cv2.VideoWriter``
    (the run fails if it does not open one), then ``cli.main`` in this
@@ -433,18 +448,12 @@ def _dense_from_wmat(wmat, wspec, cin):
     return wd
 
 
-def _unpack_s2d(x):
-    b, c4, h, w = x.shape
-    c = c4 // 4
-    return x.reshape(b, 2, 2, c, h, w).permute(0, 3, 4, 1, 5, 2).reshape(
-        b, c, 2 * h, 2 * w)
-
-
 def _k3_launch(tag, x, wmat, spec, b, alpha, cin, resid):
     """One K3 launch held against its plain version and timed beside
     ``F.conv2d`` of the composed dense conv; returns its numbers and the
     plain version's output."""
     from bp_from_video_tpu_torch.kernels import block as bk
+    from bp_from_video_tpu_torch.kernels import warp as wk
     args = (x, wmat, spec, b, alpha)
 
     def kern():
@@ -460,7 +469,7 @@ def _k3_launch(tag, x, wmat, spec, b, alpha, cin, resid):
     cout = wmat.shape[0]
     wd = _dense_from_wmat(wmat, spec, cin).to(torch.bfloat16)
     bd = b.to(torch.bfloat16)
-    xu = torch.nn.functional.pad(_unpack_s2d(x), (0, 1, 0, 1))
+    xu = torch.nn.functional.pad(wk.unpack_s2d(x), (0, 1, 0, 1))
 
     def library():
         return torch.nn.functional.conv2d(xu, wd, bd, stride=2)
@@ -745,6 +754,7 @@ def check_stem_packed(gen, dev, s: int = 64):
     16 channels, PReLU) and the hand stand-in's (128 crops of 224, 24
     channels, ReLU)."""
     from bp_from_video_tpu_torch.kernels import stem as sk
+    from bp_from_video_tpu_torch.kernels import warp as wk
     tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0, flops=0, floor=0.0)
     errs = []
     for name, bsz, size, cout, prelu in (("face", s, 256, 16, True),
@@ -769,7 +779,7 @@ def check_stem_packed(gen, dev, s: int = 64):
             fail(f"stem_packed ({name}) disagrees with its plain version")
         errs.append(err)
         wc = w.permute(3, 2, 0, 1).contiguous()
-        xu = torch.nn.functional.pad(_unpack_s2d(crops), (0, 1, 0, 1))
+        xu = torch.nn.functional.pad(wk.unpack_s2d(crops), (0, 1, 0, 1))
         bc = b.to(torch.bfloat16)
 
         def library(xu=xu, wc=wc, bc=bc, alpha=alpha):
@@ -850,16 +860,19 @@ def _bn_library(ops, last_act):
     return run
 
 
-def check_bottleneck(gen, dev, s: int = 64):
-    """K5 and K6 at all seven face-mesh stage shapes with B = 64 (K6 with
-    four units, one kernel launch each; K5 also with C' != C and with relu
-    / no last activation), bf16: the tensor-core route, its SASS checked
-    for HMMA instructions."""
+def check_bottleneck(gen, dev, s: int = 64, stages=MESH_STAGES,
+                     lone: bool = True):
+    """K6 (four units, one kernel launch each) and, with ``lone``, K5 (also
+    with C' != C and with relu / no last activation) at the face-mesh
+    ``stages`` with B = ``s``, bf16: the tensor-core route, its SASS
+    checked for HMMA instructions.  Returns the K5 row (None without
+    ``lone``) and the K6 row."""
     from bp_from_video_tpu_torch.kernels import bottleneck as bn
     rng = np.random.default_rng(5)
     rows = {}
-    for kern, units in (("bottleneck_chain", 4), ("bottleneck_s1", 1)):
-        cases = [(hw, c, d, c, "prelu") for hw, c, d in MESH_STAGES]
+    kinds = (("bottleneck_chain", 4), ("bottleneck_s1", 1))
+    for kern, units in kinds if lone else kinds[:1]:
+        cases = [(hw, c, d, c, "prelu") for hw, c, d in stages]
         if units == 1:
             cases += [(128, 16, 8, 32, "prelu"), (64, 32, 16, 32, "relu"),
                       (32, 64, 32, 64, "none")]
@@ -938,7 +951,7 @@ def check_bottleneck(gen, dev, s: int = 64):
             source="bp_from_video_tpu_torch/csrc/bottleneck.cu",
             replaces=f"bp_from_video_tpu/pallas/block_kernel.py:{line}",
             max_abs_err=max(errs), **main)
-    return rows["bottleneck_s1"], rows["bottleneck_chain"]
+    return rows.get("bottleneck_s1"), rows["bottleneck_chain"]
 
 
 # -- phases 3 and 4: the engine ------------------------------------------------
@@ -1013,6 +1026,23 @@ PER_STEP = {
                               "roi_samples": 1},
     "mesh, every stage fused": {"multi_crop": 1, "dense_s2_block": 6,
                                 "roi_samples": 1, "bottleneck_chain": 7},
+    # 3l: ``multistream`` with every net compiled but the hand net (a
+    # stand-in): K3 runs the hand net's stem and blocks and the mesh's
+    # split-off stem, K6 the mesh's 128x128 stage; the detectors and the
+    # segmenter are plain convolutions.  The graph passes leave the
+    # kernels as they are.
+    "multistream, compiled nets": {"multi_crop": 1, "dense_s2_block": 6,
+                                   "roi_samples": 1, "bottleneck_chain": 1},
+    "multistream, compiled nets, fuse_dw_pw + pack_s2d": {
+        "multi_crop": 1, "dense_s2_block": 6, "roi_samples": 1,
+        "bottleneck_chain": 1},
+    # 3m: the packed path, the fused stem and trunk off: K1 crops packed,
+    # the nets plain convolutions.
+    "packed, stand-ins": {"multi_crop": 1, "roi_samples": 1},
+    "packed, compiled mesh": {"multi_crop": 1, "roi_samples": 1},
+    # 3m's control: the same config unpacked (no pass, K1 plain crops).
+    "unpacked, stand-ins": {"multi_crop": 1, "roi_samples": 1},
+    "unpacked, compiled mesh": {"multi_crop": 1, "roi_samples": 1},
 }
 
 
@@ -1141,14 +1171,17 @@ def check_composed(path: str, drawer, frames, out, render) -> None:
 
 def drive(path: str, engine, params, clip, dev, card: str,
           profile_dir: str | None = None, check_signal: bool = True,
-          render=None, lagged: int = 0, held=None):
+          render=None, lagged: int = 0, held=None, syncs: bool = False,
+          early: int = 0):
     """Run ``engine`` over ``clip`` (half the streams start tracked; with
     ``lagged`` = F in windows of F frames; ``render`` after each step) with
     the launch counters set to 0 just before and read just after, check the
     counts against ``PER_STEP[path]`` and, with ``check_signal``, BPM of
     the ROIs ``held`` (default all; PTT too where every ROI of two or more
-    is held) on the tracked streams; returns the counts and the last
-    step's outputs."""
+    is held) on the tracked streams; with ``early``, log (not hold) the BPM
+    of every ROI on the tracked streams after that many steps; with
+    ``syncs``, log the host syncs of one more step (outside the counted
+    run); returns the counts and the last step's outputs."""
     f = lagged or 1
     steps, s = clip.shape[0] // f, clip.shape[1]
     cfg = engine.config
@@ -1167,8 +1200,11 @@ def drive(path: str, engine, params, clip, dev, card: str,
     state, _ = run_clip(engine, params, state, clip[:warm * f], **kw)
     torch.cuda.synchronize()
     t_mid = time.perf_counter()
-    state, out = run_clip(engine, params, state, clip[warm * f:steps * f],
-                          t0=warm * f, **kw)
+    cut = early if warm < early < steps else warm
+    state, out_early = run_clip(engine, params, state,
+                                clip[warm * f:cut * f], t0=warm * f, **kw)
+    state, out = run_clip(engine, params, state, clip[cut * f:steps * f],
+                          t0=cut * f, **kw)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = {k: fn.launches for k, fn in counters().items()}
@@ -1189,6 +1225,12 @@ def drive(path: str, engine, params, clip, dev, card: str,
     n_track = int(state.track.face_tracking.sum())
     if n_track < int(tracked.sum()):
         fail(f"{tag}: only {n_track} faces still tracked")
+    if cut > warm:
+        eb = out_early.bpm.float().cpu()[tracked.cpu()]
+        for r in range(ns):
+            log(f"{tag} ROI {r} BPM at step {cut} (logged, not held) on "
+                f"tracked streams: {eb[:, r].tolist()}")
+    del out_early
     if check_signal:
         bpm, ptt = out.bpm.float().cpu(), out.ptt.float().cpu()
         n_fin = int(torch.isfinite(bpm).all(-1).sum())
@@ -1216,6 +1258,10 @@ def drive(path: str, engine, params, clip, dev, card: str,
             f"{sorted(set(ptt[tr].flatten().tolist()))}; streams with "
             f"finite BPM {n_fin}/{s}; tracking face {n_track}/{s}; proc_y "
             f"{tuple(out.proc_y.shape)}")
+    if syncs:
+        n = count_syncs(lambda: run_clip(engine, params, state,
+                                         clip[-f:], t0=steps * f, **kw))
+        log(f"{tag} host syncs a step: {n}")
     if profile_dir:
         profile(engine, params, state, clip[:10 * f], steps * f, profile_dir,
                 path, **kw)
@@ -1899,6 +1945,295 @@ def profile(engine, params, state, clip, t0, out_dir, path, render=None,
         f"{dict(sites)}")
 
 
+# -- phases 3l and 3m: compiled detectors and segmenter; the packed path ------
+
+# Steps of 3l (then of its run with the graph passes on) and of each of
+# 3m's runs.  BPM is held after ``HELD_STEPS`` and logged after
+# ``EARLY_STEPS``: 60 samples do not settle the spectrum's peak, packed or
+# not (each run logs its reading there beside the held one).
+HELD_STEPS = 130
+COMPILED_PASS_STEPS = 20
+EARLY_STEPS = 60
+COMPILED_KEYS = ("face_det", "flm_det", "flm_lm", "palm_det", "seg")
+# The anchor phase 4's face detectors fire on: stride-8 cell (8, 6) of the
+# 128 input, where a 96x128 person scene's face lies once letterboxed.
+FACE_HOT = (6 * 16 + 8) * 2
+
+
+def compiled_graphs(reduced: bool = False, hot: bool = False) -> dict:
+    """Numpy-built graphs of every net the repo has a graph for: the two
+    face detectors (BlazeFace twins at 128), the face mesh with its
+    template head (full size, or reduced to 64x64 and three stages), the
+    palm detector (192) and the segmenter (256).  ``hot``: the face
+    detectors fire on ``FACE_HOT`` (a 50-pixel box)."""
+    from bp_from_video_tpu_torch.models.mesh_graph import face_mesh_graph
+    from bp_from_video_tpu_torch.models.twin_graphs import (detector_graph,
+                                                            segmenter_graph)
+    face = dict(hot_anchor=FACE_HOT, hot_box=50.0) if hot else {}
+    mesh = (face_mesh_graph(7, 64, ((16, 8), (32, 16), (64, 32))) if reduced
+            else face_mesh_graph(7))
+    return {"face_det": detector_graph(11, 128, (2, 6), 6, **face),
+            "flm_det": detector_graph(12, 128, (2, 6), 6, **face),
+            "flm_lm": template_mesh(mesh),
+            "palm_det": detector_graph(13, 192, (2, 6), 7),
+            "seg": segmenter_graph(14, 256, 6)}
+
+
+def _graph_ops(runner) -> str:
+    """Op counts of the compiled detectors' and segmenter's graphs."""
+    out = []
+    for key in ("face_det", "palm_det", "seg"):
+        fn = runner._seg_fn if key == "seg" else runner._det_fns[key]
+        ops = collections.Counter(op.opcode for op in fn.graph.ops)
+        out.append(f"{key} {sum(ops.values())} ops ("
+                   + ", ".join(f"{k} {v}" for k, v in sorted(ops.items()))
+                   + ")")
+    return "; ".join(out)
+
+
+def compiled_nets(clip, dev, card: str) -> collections.Counter:
+    """Phase 3l: ``preset_config("multistream")`` over ``clip`` (8 streams
+    of person scenes, 480x640 bf16) with every net compiled that the repo
+    has a graph for (``compiled_graphs``; the hand net stays the stand-in,
+    as the reference mixes a compiled palm detector with a stand-in hand
+    net), template heads, half the streams tracked, every stream composed:
+    ``HELD_STEPS`` steps, then ``COMPILED_PASS_STEPS`` with
+    ``fuse_dw_pw`` and ``pack_s2d=64`` (the detectors and the segmenter
+    rewritten; the mesh keeps its fused stem).  Fails unless each compiled
+    net ran, the kernels launched as ``PER_STEP`` says, the face ROI's BPM
+    is near 72 on the tracked streams (the first run; its reading at
+    ``EARLY_STEPS`` logged) and the segmenter's
+    confidences sum to 1 within 2e-2 at every pixel.  Returns the launch
+    counts."""
+    import dataclasses
+
+    from bp_from_video_tpu_torch.config import preset_config
+    from bp_from_video_tpu_torch.render.drawer import Drawer
+    from bp_from_video_tpu_torch.runtime.engine import Engine
+    total = collections.Counter()
+    base = preset_config("multistream", clip.shape[1])
+    for path, steps, infer in (
+            ("multistream, compiled nets", HELD_STEPS, {}),
+            ("multistream, compiled nets, fuse_dw_pw + pack_s2d",
+             COMPILED_PASS_STEPS, dict(fuse_dw_pw=True, pack_s2d=64))):
+        cfg = dataclasses.replace(base, inference=dataclasses.replace(
+            base.inference, **infer))
+        t = time.perf_counter()
+        engine = Engine(cfg, graphs=compiled_graphs())
+        run = engine.runner
+        want = dict.fromkeys(COMPILED_KEYS, True) | {"hand_lm": False}
+        if run.real_weights != want:
+            fail(f"[{path}]: compiled nets {run.real_weights}")
+        log(f"[{path}] engine built in {time.perf_counter() - t:.2f} s; "
+            f"{_graph_ops(run)}")
+        params = template_heads(engine.params, keys=("hand_lm",))
+        drawer = Drawer(cfg, show=False)
+        launches, out = drive(
+            path, engine, params, clip[:steps], dev, card,
+            check_signal=steps == HELD_STEPS,
+            render=lambda f, o: drawer.compose(f, o), held=(0,), syncs=True,
+            early=EARLY_STEPS)
+        total.update(launches)
+        calls = dict(run.graph_calls)
+        conf = out.models.seg_conf
+        err = float((conf.sum(1) - 1).abs().max())
+        log(f"[{path}] compiled-net calls {calls}; segmenter confidences "
+            f"{tuple(conf.shape)}: largest |sum - 1| {err:.3g} (bound 2e-2)")
+        if any(not calls.get(k) for k in COMPILED_KEYS):
+            fail(f"[{path}]: a compiled net did not run")
+        if not err <= 2e-2:
+            fail(f"[{path}]: the segmenter's confidences do not sum to 1")
+        del engine, out
+        torch.cuda.empty_cache()
+    return total
+
+
+def net_ms(engine, params, frames, calls: int = 10) -> dict:
+    """Each landmark net on one step's K1 crops of ``frames`` (the tracked
+    rects of ``tracked_state``), the crops made once outside the timing:
+    (device ms a call, kernels and copies a call, CUDA-event ms a call).
+    The device time is the sum of its kernels' times over ``calls`` calls
+    under ``torch.profiler``, the card's own work; the CUDA-event time
+    behind ``time_ms``'s sleep kernel also holds the gaps where the card
+    waits for the host to launch the next of the net's ~100-200 ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as prof
+    run = engine.runner
+    h, w = frames.shape[-2:]
+    st = tracked_state(engine, h, w, torch.ones(frames.shape[0],
+                                                dtype=torch.bool,
+                                                device=frames.device)).track
+    covers = {"flm_lm": st.face_rect, "hand_lm": st.hand_rects}
+    crops = run._k1_crops(frames, True, covers)
+    out = {}
+    with torch.no_grad():
+        for key, c in crops.items():
+            def call(k=key, c=c, p=bool(run._packed_in.get(key))):
+                return run._landmarks(k, params[k], c, p)
+            ev = time_ms(call, reps=5, inner=2)
+            torch.cuda.synchronize()
+            with prof(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as p:
+                for _ in range(calls):
+                    call()
+                torch.cuda.synchronize()
+            evs = [e for e in p.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+            dev_ms = sum(e.self_device_time_total for e in evs) / 1e3 / calls
+            if not dev_ms > 0:
+                fail(f"net_ms [{key}]: the profiler saw no device time")
+            out[key] = (dev_ms, sum(e.count for e in evs) / calls, ev)
+    return out
+
+
+def packed_path(clip, dev, card: str) -> collections.Counter:
+    """Phase 3m: ``flagship_config()`` with the fused stem and trunk off,
+    ``fuse_dw_pw`` and ``pack_s2d=64`` (the JAX bench's flagship with
+    ``BENCH_FUSE=1 BENCH_S2D=64`` and its fused stem off) over
+    ``HELD_STEPS`` steps of ``clip`` (64 streams): (i) stand-in nets, K1
+    packing their crops for their packed stem twins; (ii) the face net the
+    compiled mesh, compiled to take its crop packed (a 12-channel input).
+    BPM near 72 on every held ROI and PTT as in phase 3 (the readings at
+    ``EARLY_STEPS`` logged); K1 and K4 once a step.  Then the same two with
+    the passes off (``unpacked``, the control, held the same way), and each
+    landmark net's device time alone on one step's crops, packed and
+    unpacked (``net_ms``).  Returns the launch counts."""
+    import dataclasses
+
+    from bp_from_video_tpu_torch.config import flagship_config
+    from bp_from_video_tpu_torch.models.mesh_graph import face_mesh_graph
+    from bp_from_video_tpu_torch.runtime.engine import Engine
+    base = flagship_config(clip.shape[1])
+    total = collections.Counter()
+    nets = {}
+    for path, mesh, passes in (
+            ("packed, stand-ins", False, True),
+            ("packed, compiled mesh", True, True),
+            ("unpacked, stand-ins", False, False),
+            ("unpacked, compiled mesh", True, False)):
+        cfg = dataclasses.replace(base, inference=dataclasses.replace(
+            base.inference, fused_stem=False, fused_trunk=False,
+            fuse_dw_pw=passes, pack_s2d=64 if passes else 0))
+        graphs = {"flm_lm": template_mesh(face_mesh_graph(7))} if mesh \
+            else None
+        engine = Engine(cfg, graphs=graphs)
+        run = engine.runner
+        params = template_heads(engine.params, keys=(
+            ("hand_lm",) if mesh else ("flm_lm", "hand_lm")))
+        packs = {k: 2 if run._packed_in.get(k) else 1 for k in run.sizes
+                 if k.endswith("_lm")}
+        note = ""
+        if mesh:
+            g = run._graph_fns["flm_lm"].graph
+            ish = g.tensors[g.inputs[0]].shape
+            ops = collections.Counter(op.opcode for op in g.ops)
+            note = (f"; the mesh graph takes {ish} (crop {run.sizes['flm_lm']}"
+                    f"), {sum(ops.values())} ops: {dict(sorted(ops.items()))}")
+            if ish[3] != (12 if passes else 3):
+                fail(f"[{path}]: the mesh graph takes {ish}")
+        log(f"[{path}] K1 packs per net {packs}, fused stems "
+            f"{sorted(run._stem_src)}{note}")
+        if set(packs.values()) != {2 if passes else 1} or run._stem_src:
+            fail(f"[{path}]: the nets do not take K1's crops as configured")
+        launches, _ = drive(path, engine, params, clip[:HELD_STEPS], dev,
+                            card, syncs=True, early=EARLY_STEPS)
+        total.update(launches)
+        nets[path] = net_ms(engine, params, clip[-1])
+        del engine
+        torch.cuda.empty_cache()
+    for what in ("stand-ins", "compiled mesh"):
+        a, b = nets[f"packed, {what}"], nets[f"unpacked, {what}"]
+        log(f"[3m {what}] landmark nets alone on one step's K1 crops "
+            f"({clip.shape[1]} streams, bf16) on {card}: "
+            + "; ".join(
+                f"{k} device ms packed {a[k][0]:.4f} ({a[k][1]:.1f} "
+                f"kernels), unpacked {b[k][0]:.4f} ({b[k][1]:.1f}): "
+                f"{a[k][0] / b[k][0]:.3f}x; CUDA events packed "
+                f"{a[k][2]:.4f}, unpacked {b[k][2]:.4f}" for k in a))
+    return total
+
+
+def _hold_seg_conf(a, b, tag: str) -> None:
+    """Segmenter confidences within 1e-4, but for at most 1e-3 of the
+    pixels, where a bf16 operand of the full-resolution upsample rounded
+    to a neighbouring value: there within one bf16 ulp of a confidence
+    below 1 (2^-8)."""
+    d = (a - b).abs()
+    off = float((d > 1e-4).float().mean())
+    top = float(d.max())
+    log(f"card vs CPU [{tag}]: segmenter confidences differ by up to "
+        f"{top:.3g}; share beyond 1e-4 {off:.3g}")
+    if off > 1e-3 or top > 2.0 ** -8:
+        fail(f"card and CPU segmenter confidences differ [{tag}]")
+
+
+def compiled_card_vs_cpu(steps: int, dev, devices=("cuda", "cpu")) -> None:
+    """Phase 4's compiled-net run: ``multistream`` at S = 2, 96x128, f32
+    with ``compiled_graphs(reduced=True, hot=True)`` (stream 1 starts
+    untracked: the compiled face-landmarker detector acquires it) on the
+    card and on the CPU over person scenes: the face detector's boxes and
+    every landmark within 1 px at every step, the segmenter's confidences
+    (last step) as ``_hold_seg_conf``, BPM equal, PTT within one sample
+    period (last step)."""
+    import dataclasses
+
+    from bp_from_video_tpu_torch.config import preset_config
+    from bp_from_video_tpu_torch.runtime.engine import Engine
+    s, h, w = 2, 96, 128
+    clip = pulse_clip(steps, s, h, w, split=60, seed=6, device=dev,
+                      person=True)
+    cfg = dataclasses.replace(preset_config("multistream", s, h, w),
+                              compute_dtype="float32")
+    res = {}
+    for where in devices:
+        eng = Engine(cfg, device=where,
+                     graphs=compiled_graphs(reduced=True, hot=True))
+        params = template_heads(eng.params, keys=("hand_lm",))
+        st = tracked_state(eng, h, w, torch.tensor([True, False],
+                                                   device=eng.device))
+        rows = []
+        t = time.perf_counter()
+        for i in range(steps):
+            st, out = eng.batch_step(params, st, clip[i].to(where),
+                                     torch.full((s,), (i + 1) / 30.0,
+                                                device=eng.device))
+            m = out.models
+            rows.append(torch.cat([m.face_detector.bbox.flatten(1),
+                                   m.face_landmarker.points.flatten(1),
+                                   m.hand_landmarker.points.flatten(1)],
+                                  1).cpu())
+        res[where] = (torch.stack(rows), out, dict(eng.runner.graph_calls))
+        log(f"small f32 [compiled nets] S={s} {h}x{w} on {where}: {steps} "
+            f"steps in {time.perf_counter() - t:.2f} s; calls "
+            f"{res[where][2]}; faces found by the face detector "
+            f"{out.models.face_detector.count.tolist()}, tracked "
+            f"{st.track.face_tracking.tolist()}")
+    (pa, a, ca), (pb, b, cb) = (res[d] for d in devices)
+    dp = float((pa - pb).abs().nan_to_num(0).max())
+    same_nan = torch.equal(pa.isnan(), pb.isnan())
+    bpm_a, bpm_b = a.bpm.cpu(), b.bpm
+    ptt_a, ptt_b = a.ptt.cpu(), b.ptt
+    log(f"card vs CPU [compiled nets]: boxes and landmarks differ by up to "
+        f"{dp:g} px over {steps} steps (NaN pattern equal {same_nan}); BPM "
+        f"{bpm_a.tolist()} / {bpm_b.tolist()}; PTT ms {ptt_a.tolist()} / "
+        f"{ptt_b.tolist()}")
+    if not (dp <= 1.0 and same_nan and ca == cb
+            and all(ca.get(k) for k in COMPILED_KEYS)):
+        fail("card and CPU detections or landmarks differ [compiled nets]")
+    if int(a.models.face_detector.count.min()) < 1:
+        fail("[compiled nets]: the hot face detector found no face")
+    _hold_seg_conf(a.models.seg_conf.cpu(), b.models.seg_conf,
+                   "compiled nets")
+    if not (bool(torch.isfinite(bpm_a[:, 0]).all())
+            and torch.equal(bpm_a.nan_to_num(-1), bpm_b.nan_to_num(-1))):
+        fail("card and CPU BPM differ [compiled nets]")
+    if not bool((((ptt_a - ptt_b).abs() <= 1000.0 / 30.0)
+                 | (ptt_a.isnan() & ptt_b.isnan())).all()):
+        fail("card and CPU PTT differ by more than one sample period "
+             "[compiled nets]")
+
+
 def card_vs_cpu(steps: int, dev):
     """A small f32 config on the card (kernels) and on the CPU (plain
     versions) over one clip (person scenes for ``segmenter_fir`` and
@@ -1916,13 +2251,20 @@ def card_vs_cpu(steps: int, dev):
     from bp_from_video_tpu_torch.runtime.engine import Engine
     s, h, w = 2, 96, 128
     clip = pulse_clip(steps, s, h, w, split=60, seed=4, device=dev)
-    for name, mesh in (("stand-ins", False), ("compiled face graph", True)):
+    fused = dict(fused_stem=True, fused_trunk=True, fused_bn_min_hw=0)
+    # 3m's paths at this size: the reduced mesh packed from 16x16 up.
+    packed = dict(fused_stem=False, fused_trunk=False, fuse_dw_pw=True,
+                  pack_s2d=16)
+    for name, mesh, kw in (("stand-ins", False, fused),
+                           ("compiled face graph", True, fused),
+                           ("packed stand-ins", False, packed),
+                           ("packed compiled face graph", True, packed)):
         cfg = EngineConfig(frame_height=h, frame_width=w, num_streams=s,
                            compute_dtype="float32",
-                           inference=InferenceConfig(
-                               use_pallas=True, fused_stem=True,
-                               fused_trunk=True, fused_bn_min_hw=0))
+                           inference=InferenceConfig(use_pallas=True, **kw))
         outs = {}
+        # The packed paths on the first half of the clip.
+        on = clip[:steps // 2] if kw is packed else clip
         for where in ("cuda", "cpu"):
             graphs = ({"flm_lm": template_mesh(face_mesh_graph(
                 7, 64, ((16, 8), (32, 16), (64, 32))))} if mesh else None)
@@ -1932,9 +2274,9 @@ def card_vs_cpu(steps: int, dev):
             st = tracked_state(eng, h, w, torch.ones(s, dtype=torch.bool,
                                                      device=eng.device))
             t = time.perf_counter()
-            _, outs[where] = run_clip(eng, params, st, clip.to(where))
-            log(f"small f32 [{name}] S={s} {h}x{w} on {where}: {steps} "
-                f"steps in {time.perf_counter() - t:.2f} s")
+            _, outs[where] = run_clip(eng, params, st, on.to(where))
+            log(f"small f32 [{name}] S={s} {h}x{w} on {where}: "
+                f"{on.shape[0]} steps in {time.perf_counter() - t:.2f} s")
         a, b = outs["cuda"], outs["cpu"]
         bpm_a, bpm_b = a.bpm.cpu(), b.bpm
         ptt_a, ptt_b = a.ptt.cpu(), b.ptt
@@ -1946,6 +2288,14 @@ def card_vs_cpu(steps: int, dev):
         if not bool(((ptt_a - ptt_b).abs() <= 1000.0 / 30.0).all()):
             fail(f"card and CPU PTT differ by more than one sample period "
                  f"[{name}]")
+        if kw is packed:
+            dp = max(float((getattr(a.models, d).points.cpu()
+                            - getattr(b.models, d).points).abs()
+                           .nan_to_num(0).max())
+                     for d in ("face_landmarker", "hand_landmarker"))
+            log(f"card vs CPU [{name}]: landmarks differ by up to {dp:g} px")
+            if not dp <= 1.0:
+                fail(f"card and CPU landmarks differ [{name}]")
     person = pulse_clip(steps, s, h, w, split=60, seed=6, device=dev,
                         person=True)
     for name in PRESETS[:2]:
@@ -1985,6 +2335,7 @@ def card_vs_cpu(steps: int, dev):
     for lagged in (0, LAGGED):
         multistream_card_vs_cpu(person, lagged)
     rotation_card_vs_cpu(clip[:40])
+    compiled_card_vs_cpu(steps // 2, dev)
 
 
 def _layer_mask(det, h: int, w: int):
@@ -2416,6 +2767,11 @@ def main():
         check_multi_crop(gen, dev, s)
         check_dense_s2_block(flag_engine, gen, dev, s)
     del flag_engine
+    # K6 at 3l's batch: the compiled mesh's 128x128 stage on 8 streams'
+    # crops (bottleneck_plan takes the batch: another launch plan than at
+    # 64).
+    log("-- K6 at 8 streams (3l: the compiled mesh's 128x128 stage)")
+    check_bottleneck(gen, dev, 8, stages=MESH_STAGES[:1], lone=False)
     log("phase 2: every kernel agrees with its plain version")
     torch.cuda.empty_cache()
 
@@ -2450,6 +2806,11 @@ def main():
     total.update(flagship("mesh, every stage fused", clip[:8], dev, card,
                           check_signal=False, fused_bn_min_hw=0))
     log("phase 3c: both stems ran through K2; every mesh stage ran fused")
+    t = time.perf_counter()
+    total.update(packed_path(clip, dev, card))
+    log(f"phase 3m: the packed path (K1 pack=2 into the stand-ins' packed "
+        f"stems and a packed-input mesh graph) ran through K1 and K4 "
+        f"({time.perf_counter() - t:.1f} s)")
     for phase, name in (("3e", "butter_welch_face"), ("3g", "dual_roi_ls"),
                         ("3h", "ptt_filtered"), ("3f", "segmenter_fir")):
         if name == "segmenter_fir":
@@ -2473,6 +2834,11 @@ def main():
     total.update(multistream(clip, dev, card, args.profile, lagged=LAGGED))
     log(f"phase 3j: multistream through batch_step_lagged (F={LAGGED}, "
         "stream 0 composed) ran through K1, K3 and K4 (weighted)")
+    t = time.perf_counter()
+    total.update(compiled_nets(clip, dev, card))
+    log(f"phase 3l: multistream with compiled detectors, mesh and segmenter "
+        f"ran through K1, K3, K4 (weighted) and K6, plain and with the graph "
+        f"passes ({time.perf_counter() - t:.1f} s)")
     del clip
     torch.cuda.empty_cache()
     total["bottleneck_s1"] += lone_unit_graph(dev)

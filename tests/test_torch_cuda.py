@@ -874,3 +874,93 @@ def test_cuda_hybrid_gate_syncs_once_a_step(cuda_device):
         assert twk.multi_crop.launches == n + 1
         return sum("synchroniz" in str(w.message) for w in caught)
     assert syncs("hybrid") == syncs("cover") + 1
+
+
+# -- compiled detectors and segmenter, the packed path (card against CPU) ----
+
+
+def _compiled_pair(graph, device, **kw):
+    """One numpy-built graph compiled f32 for the card and for the CPU."""
+    from bp_from_video_tpu_torch.models import tflite_compiler as ttc
+    kw = dict(layout="NCHW", planar_inputs=True, batch_flexible=True, **kw)
+    return (ttc.compile_graph(graph, device=device, **kw),
+            ttc.compile_graph(graph, device="cpu", **kw))
+
+
+def _hold_outputs(got, want, tol=1e-4):
+    for g, w in zip(got, want):
+        g = g.float().cpu()
+        assert g.shape == w.shape
+        assert float((g - w.float()).abs().max()) <= tol * float(
+            w.float().abs().max()) + 1e-6
+
+
+@pytest.mark.parametrize("passes", [{}, dict(fuse_dw_pw=True, pack_s2d=32)],
+                         ids=["plain", "fuse_dw_pw-pack_s2d"])
+@pytest.mark.parametrize("net", ["face_det", "palm_det", "seg"])
+def test_cuda_compiled_detector_and_segmenter_match_cpu(cuda_device, net,
+                                                        passes):
+    """The numpy-built detectors and segmenter compiled for the card (cuDNN
+    convolutions, the graph passes' packed ops) against the same graphs on
+    the CPU: f32 outputs within 1e-4 of their scale."""
+    from bp_from_video_tpu_torch.models import twin_graphs as tg
+    graph = {"face_det": lambda: tg.detector_graph(1, 128, (2, 6), 6),
+             "palm_det": lambda: tg.detector_graph(2, 192, (2, 6), 7),
+             "seg": lambda: tg.segmenter_graph(3, 256, 6)}[net]()
+    (fa, pa), (fb, pb) = _compiled_pair(graph, cuda_device, **passes)
+    n, h, w, c = fa.input_shapes[0]
+    x = torch.rand((3, c, h, w), generator=torch.Generator().manual_seed(1))
+    _hold_outputs(fa(pa, x.to(cuda_device)), fb(pb, x))
+
+
+def _runner_landmarks(device, infer, graphs, frames, track):
+    from bp_from_video_tpu_torch.config import InferenceConfig
+    from bp_from_video_tpu_torch.kernels import warp as twk_
+    from bp_from_video_tpu_torch.models.runner import InferenceRunner
+    r = InferenceRunner(InferenceConfig(**infer), 96, 128, device=device,
+                        graphs=graphs() if graphs else None)
+    st = r.init_state(frames.shape[0])._replace(
+        **{k: v.to(device) for k, v in track.items()})
+    twk_.multi_crop.launches = 0
+    _, res = r.predict_batch(r.params, st, frames.to(device))
+    return res, twk_.multi_crop.launches, r
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["standins", "mesh"])
+def test_cuda_packed_path_matches_cpu(cuda_device, mesh):
+    """3m's path (the fused stem and trunk off, ``fuse_dw_pw``,
+    ``pack_s2d``): K1 packs the crops on the card (one launch) for the
+    stand-ins' packed stems or the packed-input mesh graph; landmarks
+    within 1 px of the CPU's, compiled detectors and segmenter included."""
+    from bp_from_video_tpu_torch.models import mesh_graph, twin_graphs as tg
+
+    def graphs():
+        g = {"seg": tg.segmenter_graph(3, 256, 6),
+             "palm_det": tg.detector_graph(2, 192, (2, 6), 7)}
+        if mesh:
+            g["flm_lm"] = mesh_graph.face_mesh_graph(
+                5, 64, ((16, 8), (32, 16), (64, 32)))
+        return g
+    infer = dict(use_pallas=True, fused_stem=False, fused_trunk=False,
+                 fuse_dw_pw=True, pack_s2d=16, person_segmenter=True,
+                 hand_lm_standin_path=None, palm_det_standin_path=None)
+    s = 2
+    frames = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (s, 3, 96, 128), dtype=np.uint8))
+    track = dict(
+        face_rect=torch.tensor([[64., 40, 56, 56, 0]] * s),
+        face_tracking=torch.ones(s, dtype=torch.bool),
+        hand_rects=torch.tensor([[[30., 72, 40, 40, 0],
+                                  [98, 72, 40, 40, 0]]] * s),
+        hand_tracking=torch.ones((s, 2), dtype=torch.bool))
+    a, k1, run = _runner_landmarks(cuda_device, infer, graphs, frames, track)
+    b, _, _ = _runner_landmarks("cpu", infer, graphs, frames, track)
+    assert k1 == 1 and run._packed_in == {"flm_lm": True, "hand_lm": True}
+    for det in ("face_landmarker", "hand_landmarker"):
+        pa = getattr(a, det).points.cpu()
+        pb = getattr(b, det).points
+        assert torch.equal(pa.isnan(), pb.isnan())
+        assert float((pa - pb).abs().nan_to_num(0).max()) <= 1.0
+    d = (a.seg_conf.cpu() - b.seg_conf).abs()
+    assert float((d > 1e-4).float().mean()) <= 1e-3
+    assert float(d.max()) <= 2.0 ** -8

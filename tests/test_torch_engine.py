@@ -286,11 +286,24 @@ def test_preset_config_matches_bench(name):
 
 
 def test_unported_paths_raise():
-    for kw in (dict(pack_s2d=64), dict(fuse_dw_pw=True)):
+    """``pack_s2d`` and ``fuse_dw_pw`` (ported: they raised before) build
+    and step: with ``pack_s2d`` and the fused stem off, K1 packs the
+    stand-ins' crops for their packed stem twins; outputs keep their
+    shapes."""
+    for kw, packed in ((dict(pack_s2d=64, fused_stem=False,
+                             fused_trunk=False), True),
+                       (dict(fuse_dw_pw=True), True),
+                       (dict(use_pallas=False, pack_s2d=64), False)):
         cfg = EngineConfig(inference=InferenceConfig(**dict(FUSED, **kw)),
-                           frame_height=H, frame_width=W)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(cfg, device="cpu")
+                           frame_height=H, frame_width=W, num_streams=S)
+        te = Engine(cfg, device="cpu")
+        assert te.runner._packed_in == (
+            {"flm_lm": True, "hand_lm": True} if packed else {})
+        st, out = te.batch_step(te.params, te.init_state(),
+                                torch.from_numpy(_frames(3)[0]),
+                                torch.full((S,), 1 / 30.0))
+        assert tuple(out.rois.shape) == (S, 2, 6)
+        assert tuple(st.track.face_rect.shape) == (S, 5)
 
 
 def test_port_imports_no_jax():

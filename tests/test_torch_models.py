@@ -56,9 +56,9 @@ def _to_t(tree):
 def test_standin_init_draws_match_reference():
     _tree_equal(blaze.init_blaze_detector(7, 128, 896, 6),
                 jblaze.init_blaze_detector(7, 128, 896, 6))
-    want = jblaze.init_blaze_landmark(9, 64, 21)
-    want.pop("stem_p")                 # the unfused packed path only
-    _tree_equal(blaze.init_blaze_landmark(9, 64, 21), want)
+    got, want = (m.init_blaze_landmark(9, 64, 21) for m in (blaze, jblaze))
+    assert got["stem_p"]["w"].shape == (3, 3, 12, 96)     # the packed twin
+    _tree_equal(got, want)
 
 
 def test_load_standin_npz_matches_reference():
@@ -231,3 +231,47 @@ def test_params_from_jax_equal_port_construction(dtype):
     eq(got, tr.params)
     assert tr.params["hand_lm"]["stem_wmat"].dtype == torch.bfloat16
     assert tr.params["hand_lm"]["trunk"][0]["b"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_params_from_jax_carry_packed_stems_and_compiled_nets(dtype,
+                                                              tmp_path):
+    """With ``pack_s2d`` and ``fuse_dw_pw`` on and the hand nets compiled
+    from the faithful bundle: the face stand-in's packed stem twin
+    ``stem_p`` and the compiled palm detector's and hand net's flat dicts
+    (their ``fused_dwpw_*`` and ``s2d_*`` constants included) convert to
+    exactly what the port builds itself."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import tflite_fixtures as fx
+    from bp_from_video_tpu.config import InferenceConfig as JIC
+    from bp_from_video_tpu.models.runner import InferenceRunner as JRunner
+    from bp_from_video_tpu_torch.config import InferenceConfig
+    from bp_from_video_tpu_torch.models.runner import InferenceRunner
+
+    task = tmp_path / "hand_landmarker.task"
+    task.write_bytes(fx.build_faithful_hand_task_bundle())
+    kw = dict(use_pallas=True, fused_stem=False, fused_trunk=False,
+              fuse_dw_pw=True, pack_s2d=48, hand_landmarker_path=str(task),
+              face_landmarker_path=None)
+    jr = JRunner(JIC(**kw), 48, 64, dtype=getattr(jnp, dtype))
+    tr = InferenceRunner(InferenceConfig(**kw), 48, 64,
+                         dtype=getattr(torch, dtype), device="cpu")
+    got = convert.params_from_jax(jax.tree.map(np.asarray, jr.params))
+    assert set(got) == set(tr.params)
+    for key in got:
+        _params_equal(got[key], tr.params[key], key)
+    assert got["flm_lm"]["stem_p"]["w"].dtype == getattr(torch, dtype)
+    assert any(k.split(":")[1].startswith("s2d_w_")
+               for k in got["palm_det"])
+    assert tr.real_weights["palm_det"] and tr.real_weights["hand_lm"]
+    assert tr._packed_in == {"flm_lm": True, "hand_lm": True}
+
+
+def _params_equal(a, b, path=""):
+    if isinstance(a, dict):
+        assert set(a) == set(b), (path, set(a) ^ set(b))
+        for k in a:
+            _params_equal(a[k], b[k], f"{path}/{k}")
+    else:
+        assert a.dtype == b.dtype and torch.equal(a, b), path

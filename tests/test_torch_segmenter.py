@@ -138,10 +138,25 @@ def test_skin_confidence_layouts_and_rejects():
 
 
 def test_compiled_segmenter_blob_raises(tmp_path):
+    """A compiled segmenter (ported: it raised before) loads from its blob
+    and runs, ``real_weights["seg"]`` set; a junk blob raises a parse
+    error."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import tflite_fixtures as fx
     blob = tmp_path / "seg.tflite"
-    blob.write_bytes(b"\0" * 16)
+    blob.write_bytes(fx.build_segmenter())
     cfg = InferenceConfig(face_landmarker=False, hand_landmarker=False,
                           person_segmenter=True,
                           person_segmenter_path=str(blob))
-    with pytest.raises(NotImplementedError, match="item 10e"):
+    tr = runner.InferenceRunner(cfg, H, W, device="cpu")
+    assert tr.real_weights == {"seg": True}
+    _, res = tr.predict_batch(tr.params, tr.init_state(S),
+                              torch.from_numpy(_frames()))
+    # The fixture's logits are constant: class 2 everywhere.
+    assert tuple(res.seg_conf.shape) == (S, 6, H, W)
+    assert bool((res.seg_class == 2).all())
+    blob.write_bytes(b"\0" * 16)
+    with pytest.raises(ValueError, match="not a TFLite flatbuffer"):
         runner.InferenceRunner(cfg, H, W, device="cpu")

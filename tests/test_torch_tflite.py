@@ -161,16 +161,26 @@ def test_compile_bf16_matches_reference(name):
 
 
 def test_compile_graph_needs_no_flatbuffer_and_rejects_unported_options():
+    """A parsed graph compiles as its flatbuffer does; the graph-pass
+    options (ported: they raised before) compile to the same function;
+    an unknown layout is refused."""
     g = ttc.parse_tflite(_blob("resize_net"))
     fn, p = ttc.compile_graph(g, device="cpu")
     fn2, p2 = ttc.compile_tflite(_blob("resize_net"), device="cpu")
     x = torch.from_numpy(_input(fn, 2, False))
-    for a, b in zip(fn(p, x), fn2(p2, x)):
+    want = fn(p, x)
+    for a, b in zip(want, fn2(p2, x)):
         assert torch.equal(a, b)
-    for kw in (dict(fuse_dw_pw=True), dict(pack_s2d=64),
-               dict(packed_inputs=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttc.compile_graph(g, device="cpu", **kw)
+    for kw in (dict(fuse_dw_pw=True), dict(pack_s2d=8),
+               dict(pack_s2d=8, packed_inputs=True)):
+        fn3, p3 = ttc.compile_graph(g, device="cpu", **kw)
+        xin = x
+        if kw.get("packed_inputs"):
+            n, h, w, c = x.shape
+            xin = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(
+                0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 4 * c)
+        _assert_close([o.numpy() for o in fn3(p3, xin)],
+                      [o.numpy() for o in want], F32_TOL)
     with pytest.raises(ValueError):
         ttc.compile_graph(g, device="cpu", layout="CHWN")
 
