@@ -208,6 +208,17 @@ class DeviceFeeder:
         frames[stale] = prev.frames.numpy()[stale]
         return self._ship(k)
 
+    def idle_batch(self):
+        """The batch of a feeder whose streams have all ended: the last one
+        shipped, again (each stream keeps its last frame and timestamp, as
+        a stream that ends before the others does), or before any frame,
+        zero frames with NaN timestamps (discarded by the NaN-masked
+        rings)."""
+        buf = self._bufs[self._k]
+        if buf.event is not None:
+            buf.event.synchronize()     # its last copy has left the buffer
+        return self._ship(self._k)
+
     def _ship(self, k: int):
         buf = self._bufs[k]
         self._k = k

@@ -11,13 +11,22 @@ bp_from_video_tpu.train``, with ``--device`` in place of ``--platform``):
 
 Features and labels are standardized on training-split statistics (the
 validity flags pass through); the constants ride in the checkpoint beside
-the parameters.  One device (``--device``, default ``cuda``): a batch is
-``--batch`` rows, drawn with ``numpy.random.default_rng([seed, step])``,
-so a resumed run draws the batches an uninterrupted run would.
-Checkpoints (parameters, AdamW moments, step, standardization) go through
+the parameters.  A batch is ``--batch`` rows, drawn with
+``numpy.random.default_rng([seed, step])``, so a resumed run draws the
+batches an uninterrupted run would.  Checkpoints (parameters, AdamW
+moments, step, standardization) go through
 ``runtime.recorder.save_state``/``load_state`` every ``--ckpt-every``
 steps; ``--resume`` continues from the saved step.  ``--predictor`` (or
 ``<checkpoint>_predictor.npz``) exports the head for the CLI's ``--bp``.
+
+Data parallel over every rank under a launcher (``torchrun
+--nproc-per-node N -m bp_from_video_tpu_torch.train ...``; one process
+runs alone): the batch is rounded to a multiple of the world size, every
+rank draws the same rows and steps on its share of them, and the loss and
+gradient are averaged over the world (``bp_regressor.train_step``'s
+``dp_group``); rank 0 alone prints and writes the checkpoints and the
+predictor.  ``--device`` (default ``cuda``) is each
+rank's ``cuda:LOCAL_RANK``.
 """
 
 from __future__ import annotations
@@ -102,13 +111,34 @@ def main(argv=None) -> int:
                     help="torch device to train on (default cuda)")
     args = ap.parse_args(argv)
 
-    import torch
+    import torch.distributed as dist
 
-    from bp_from_video_tpu_torch import resolve_device
+    owned = not dist.is_initialized()
+    try:
+        return _train(args, ap)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, ap) -> int:
+    import torch
+    import torch.distributed as dist
+
+    from bp_from_video_tpu_torch.parallel import distributed
     from bp_from_video_tpu_torch.runtime.recorder import load_state, save_state
     from bp_from_video_tpu_torch.train import bp_regressor as bpr
 
-    device = resolve_device(args.device)
+    group = dist.group.WORLD if distributed.initialize(
+        device=args.device) else None
+    device = distributed.local_device(args.device)
+    rank, world = ((dist.get_rank(), dist.get_world_size())
+                   if group is not None else (0, 1))
+
+    def say(*a, **k):
+        if rank == 0:
+            print(*a, **k)
+
     if args.synthetic is not None:
         bpm, ptt, labels = synth_dataset(args.synthetic, seed=args.seed)
     elif args.csv:
@@ -153,7 +183,7 @@ def main(argv=None) -> int:
             ap.error("--resume requires --checkpoint")
         state, norm = load_state(args.checkpoint, (state, norm))
         opt = bpr.make_optimizer(state, args.lr)
-        print(f"resumed at step {int(state.step)}")
+        say(f"resumed at step {int(state.step)}")
     f_mu, f_sd, l_mu, l_sd = (norm[k].cpu().numpy()
                               for k in ("f_mu", "f_sd", "l_mu", "l_sd"))
     tr_x = (tr_x - f_mu) / f_sd
@@ -161,25 +191,30 @@ def main(argv=None) -> int:
     ev_y = torch.from_numpy(ev_y).to(device)
     tr_y_n = (tr_y - l_mu) / l_sd
 
+    # Every rank draws the same rows and steps on its share of them.
+    per = max(args.batch // world, 1)
     loss = float("nan")
     saved_at = -1
     for i in range(int(state.step), args.steps):
         idx = np.random.default_rng([args.seed, i]).integers(
-            0, tr_x.shape[0], (args.batch,))
+            0, tr_x.shape[0], (per * world,))[rank * per:(rank + 1) * per]
         x = torch.from_numpy(tr_x[idx]).to(device)
         y = torch.from_numpy(tr_y_n[idx]).to(device)
-        state, loss = bpr.train_step(opt, state, x, y)
+        state, loss = bpr.train_step(opt, state, x, y, group)
         if (i + 1) % 50 == 0 or i + 1 == args.steps:
             with torch.no_grad():
                 mae = (bpr.mlp_apply(state.params, ev_x) * norm["l_sd"]
                        + norm["l_mu"] - ev_y).abs().mean(0).tolist()
-            print(f"step {i + 1:6d}  huber {float(loss):8.3f}  "
-                  f"eval MAE mmHg  SBP {mae[0]:6.2f}  DBP {mae[1]:6.2f}",
-                  flush=True)
+            say(f"step {i + 1:6d}  huber {float(loss):8.3f}  "
+                f"eval MAE mmHg  SBP {mae[0]:6.2f}  DBP {mae[1]:6.2f}",
+                flush=True)
         if (args.checkpoint and args.ckpt_every > 0
                 and (i + 1) % args.ckpt_every == 0):
-            save_state(args.checkpoint, (state, norm))
+            if rank == 0:
+                save_state(args.checkpoint, (state, norm))
             saved_at = i + 1
+    if rank != 0:
+        return 0
     if args.checkpoint:
         path = (save_state(args.checkpoint, (state, norm))
                 if saved_at != int(state.step) else args.checkpoint)

@@ -26,7 +26,11 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+
+from bp_from_video_tpu_torch.parallel import mesh as mesh_lib
 
 Tensor = torch.Tensor
 
@@ -78,8 +82,15 @@ def features_from_outputs(bpm: Tensor, ptt: Tensor) -> Tensor:
 
 
 def loss_fn(params: MLPParams, feats: Tensor, labels: Tensor) -> Tensor:
-    """Mean Huber loss (delta 5) over (SBP, DBP)."""
-    return F.huber_loss(mlp_apply(params, feats), labels, delta=HUBER_DELTA)
+    """Mean Huber loss (delta 5) over (SBP, DBP).  With DTensor feats,
+    labels and parameters the head's output takes the labels' placements
+    first: a ``tp``-split hidden layer times a replicated weight leaves
+    partial sums, and the loss of partial sums is not the loss of their
+    sum."""
+    pred = mlp_apply(params, feats)
+    if isinstance(pred, DTensor):
+        pred = pred.redistribute(pred.device_mesh, labels.placements)
+    return F.huber_loss(pred, labels, delta=HUBER_DELTA)
 
 
 class AdamWState(NamedTuple):
@@ -131,18 +142,36 @@ def init_train_state(gen: torch.Generator, in_dim: int,
 
 
 def train_step(opt: torch.optim.AdamW, state: TrainState, feats: Tensor,
-               labels: Tensor) -> tuple[TrainState, Tensor]:
+               labels: Tensor, dp_group=None) -> tuple[TrainState, Tensor]:
     """One AdamW step on a feature batch; ``opt`` is bound to ``state``
     (:func:`make_optimizer`).  Returns the state (parameters and moments
-    updated in place, the step counted) and the loss before the step."""
+    updated in place, the step counted) and the loss before the step (a
+    plain tensor, also for DTensor parameters).
+
+    Data parallel with ``dp_group`` (a process group whose ranks each hold
+    an equal share of the batch): the loss and every gradient are averaged
+    over the group before the update (an explicit all-reduce), so each
+    rank takes the step of the mean loss over the whole batch."""
     if opt.param_groups[0]["params"][0] is not state.params.weights[0]:
         raise ValueError("train_step: the optimizer is bound to another "
                          "state (make_optimizer(state))")
     opt.zero_grad(set_to_none=True)
     loss = loss_fn(state.params, feats, labels)
     loss.backward()
+    loss = _local(loss.detach())
+    if dp_group is not None:
+        loss = loss.clone()
+        for t in (loss, *(_local(p.grad) for p in _flat(state.params))):
+            dist.all_reduce(t, group=dp_group)
+            t.div_(dist.get_world_size(dp_group))
     opt.step()
-    return state._replace(step=state.step + 1), loss.detach()
+    return state._replace(step=state.step + 1), loss
+
+
+def _local(x: Tensor) -> Tensor:
+    """A DTensor's local shard (a view: writes reach the DTensor), or the
+    tensor."""
+    return x.to_local() if isinstance(x, DTensor) else x
 
 
 def save_predictor(path: str, params: MLPParams, norm: dict) -> str:
@@ -212,16 +241,28 @@ def load_predictor(path: str) -> BPPredictor:
 
 
 def make_e2e_train_step(engine_step: Callable, opt: torch.optim.AdamW,
-                        norm: dict | None = None) -> Callable:
+                        norm: dict | None = None, mesh=None) -> Callable:
     """End-to-end training step: frames -> engine (vision models, DSP,
     spectra, PTT) -> features -> head update.
 
     ``engine_step(engine_params, engine_state, frames [S, ...], ts [S])
-    -> (engine_state, StepOutputs)`` is ``MultiStreamEngine.step`` (=
-    ``Engine.batch_step``).  It runs under ``torch.no_grad()``, through its
-    kernels as at inference: the gradient reaches the head only.  ``norm``
-    ({"f_mu", "f_sd", "l_mu", "l_sd"}, tensors on the head's device)
-    standardizes features and labels before the update.
+    -> (engine_state, StepOutputs)`` is ``MultiStreamEngine.step`` (one
+    device: ``Engine.batch_step``).  It runs under ``torch.no_grad()``,
+    through its kernels as at inference: the gradient reaches the head
+    only.  ``norm`` ({"f_mu", "f_sd", "l_mu", "l_sd"}, plain tensors on
+    the head's device) standardizes features and labels before the
+    update.
+
+    Over ``mesh`` (that of ``MultiStreamEngine(config, mesh=...)``, whose
+    step returns this rank's rows) each rank computes the features of its
+    own streams, takes its rows of ``labels`` (placed by ``shard_frames``,
+    or plain: this rank's rows) and steps the head on them; the loss and the
+    gradient are averaged over ``dp`` (``train_step``'s ``dp_group``), so
+    the update is that of the mean loss over the global batch.
+    ``train_state`` may be placed by ``parallel.mesh.shard_params``
+    (weights split over ``tp``; ``opt`` bound to the placed state): the
+    head then runs as DTensors on the mesh, its ``tp`` collectives placed
+    by DTensor, its features replicated over ``tp``.
 
     Returns ``step(engine_params, engine_state, train_state, frames, ts,
     labels) -> (engine_state, train_state, loss)``."""
@@ -232,10 +273,23 @@ def make_e2e_train_step(engine_step: Callable, opt: torch.optim.AdamW,
                                             frames, timestamps)
             feats = features_from_outputs(out.bpm, out.ptt)
         feats = feats.detach()
+        dp_group = None
+        if mesh is not None:
+            labels = _local(labels)
+            if mesh_lib.axis_size(mesh, mesh_lib.STREAM_AXIS) > 1:
+                dp_group = mesh.get_group(mesh_lib.STREAM_AXIS)
         if norm is not None:
             feats = (feats - norm["f_mu"]) / norm["f_sd"]
             labels = (labels - norm["l_mu"]) / norm["l_sd"]
-        train_state, loss = train_step(opt, train_state, feats, labels)
+        head = train_state.params.weights[0]
+        if isinstance(head, DTensor):
+            # This rank's rows, alike on its tp peers: DTensor communicates
+            # over tp alone, and train_step reduces over dp.
+            feats, labels = (DTensor.from_local(
+                x, head.device_mesh, (Replicate(),) * head.device_mesh.ndim,
+                run_check=False) for x in (feats, labels))
+        train_state, loss = train_step(opt, train_state, feats, labels,
+                                       dp_group)
         return engine_state, train_state, loss
 
     return step

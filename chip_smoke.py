@@ -95,6 +95,17 @@ Phases (each fatal on failure):
    the flagship engine (64 streams) for 30 steps after 10: the engine's
    BPM and PTT equal to an inference-only run's, losses finite, K1, K3
    and K4 launched every step.  6a and 6d run after 3k, 6b before 5.
+7. several ranks, after 5 (``parallel``): (7a) a world of one rank over
+   NCCL (``distributed.global_mesh({"dp": 1, "tp": 1})``): the flagship
+   through ``MultiStreamEngine(mesh=...)`` for 130 steps, its state and
+   outputs equal to ``mesh=None`` bit for bit, K1/K3/K4 1/10/1 a step,
+   BPM 72; ``run_clip`` and ``run_clip_lagged`` (F = 4) equal; 6d's e2e
+   step over the mesh equal to 6d's (rtol 1e-6); (7b) two ranks sharing
+   the card over gloo, started by ``parallel.dryrun.spawn``: dp = 2, 32
+   streams a rank, each rank's launches and host clock a step, its
+   outputs and state equal to a 32-stream engine run here on its half,
+   the gathered outputs in stream order, BPM 72, and one e2e step over
+   dp = 2 within rtol 1e-5 of the unsharded head step.
 
 Prints the card's name and power limit first, one JSON line with every
 kernel's numbers before the last line, and as the last line
@@ -1775,25 +1786,31 @@ def bp_report(tag: str, out: str, streams: int) -> None:
         fail(f"[{tag}] the --bp report has no mmHg for every stream")
 
 
-def e2e_train(clip, dev, card: str, head: str,
-              steps: int = 30, warm: int = 10) -> collections.Counter:
+def e2e_train(clip, dev, card: str, head: str, steps: int = 30,
+              warm: int = 10, mesh=None, tag: str = "6d"):
     """6d: ``make_e2e_train_step`` over the flagship engine (64 streams,
     stand-ins with template heads, half the streams tracked) on ``clip``:
     ``warm`` plain steps, then ``steps`` end-to-end steps (the engine
-    under no_grad through its kernels, the head's AdamW update), with the
-    launch counters set to 0 just before those and read just after.  Fails
-    unless the engine's BPM and PTT on every step equal an inference-only
-    run's, every loss is finite and K1, K3 and K4 launched every step.
-    Returns the launch counts."""
+    under no_grad through its kernels, the head's AdamW update, labels
+    from a seeded generator), with the launch counters set to 0 just
+    before those and read just after; with ``mesh`` (7a) the engine is
+    ``MultiStreamEngine(mesh=...)`` and the head placed by
+    ``mesh.shard_params``.  Fails unless the engine's BPM and PTT on every
+    step equal an inference-only run's, every loss is finite and K1, K3
+    and K4 launched every step.  Returns the launch counts, the losses
+    and the updated head (on the host)."""
     import dataclasses
 
     from bp_from_video_tpu_torch.config import flagship_config
-    from bp_from_video_tpu_torch.runtime.engine import Engine
+    from bp_from_video_tpu_torch.models.runner import tree_leaves
+    from bp_from_video_tpu_torch.parallel import mesh as mesh_lib
+    from bp_from_video_tpu_torch.parallel.streams import MultiStreamEngine
     from bp_from_video_tpu_torch.train import bp_regressor as bpr
     cfg = dataclasses.replace(flagship_config(clip.shape[1]),
                               frame_height=clip.shape[-2],
                               frame_width=clip.shape[-1])
-    eng = Engine(cfg, device=dev)
+    ms = MultiStreamEngine(cfg, mesh=mesh, device=dev)
+    eng = ms.engine
     params = template_heads(eng.params)
     s, h, w = cfg.num_streams, cfg.frame_height, cfg.frame_width
     tracked = torch.arange(s, device=dev) < s // 2
@@ -1812,18 +1829,24 @@ def e2e_train(clip, dev, card: str, head: str,
         torch.Generator().manual_seed(0), 2 * (sig.num_signals
                                                 + sig.num_pairs),
         device=dev)
+    if mesh is not None:
+        tstate = mesh_lib.shard_params(tstate, mesh)
+        opt = bpr.make_optimizer(tstate)
     seen = []
 
     def engine_step(*a):
-        st, o = eng.batch_step(*a)
-        seen.append((o.bpm, o.ptt))
+        st, o = ms.step(*a)
+        seen.append(ms.gather((o.bpm, o.ptt)))
         return st, o
-    step = bpr.make_e2e_train_step(engine_step, opt, norm)
-    labels = torch.stack([120 + 10 * torch.rand(s, device=dev),
-                          80 + 6 * torch.rand(s, device=dev)], -1)
+    step = bpr.make_e2e_train_step(engine_step, opt, norm, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    labels = torch.stack([120 + 10 * torch.rand(s, generator=gen, device=dev),
+                          80 + 6 * torch.rand(s, generator=gen, device=dev)],
+                         -1)
     state = tracked_state(eng, h, w, tracked)
     for i in range(warm):
         state, _ = eng.batch_step(params, state, clip[i], ts[i])
+    state, params = ms.shard_state(state), ms.shard_params(params)
     zero_counters()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1833,14 +1856,15 @@ def e2e_train(clip, dev, card: str, head: str,
                                    labels)
         losses.append(loss)
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t) * 1e3 / steps
+    ms_step = (time.perf_counter() - t) * 1e3 / steps
     launches = {k: fn.launches for k, fn in counters().items()}
     losses = torch.stack(losses).cpu()
     same = all(_same(a, b) and _same(c, d) for (a, c), (b, d)
                in zip(seen, plain[warm:]))
-    log(f"[6d] make_e2e_train_step over the flagship engine, S={s} "
-        f"{h}x{w} bf16 on {card}: {steps} steps after {warm} warm, "
-        f"{ms:.3f} ms a step (host clock); losses {losses[0]:.4f} -> "
+    where = "" if mesh is None else f" over the mesh {mesh_axes(mesh)}"
+    log(f"[{tag}] make_e2e_train_step over the flagship engine{where}, "
+        f"S={s} {h}x{w} bf16 on {card}: {steps} steps after {warm} warm, "
+        f"{ms_step:.3f} ms a step (host clock); losses {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; engine BPM and PTT equal the inference-only "
         f"run's on every step: {same}; launches {launches}")
     per = {k: launches[k] / steps for k in ("multi_crop", "dense_s2_block",
@@ -1849,8 +1873,322 @@ def e2e_train(clip, dev, card: str, head: str,
             and per == {"multi_crop": 1, "dense_s2_block": 10,
                         "roi_samples": 1}
             and int(tstate.step) == steps):
-        fail("[6d] the end-to-end training step failed")
+        fail(f"[{tag}] the end-to-end training step failed")
+    return (collections.Counter(launches), losses,
+            [x.detach().cpu()
+             for x in tree_leaves(mesh_lib.gather(tstate.params))])
+
+
+# -- phase 7: the mesh on the card ----------------------------------------------
+
+# Steps of 7a's and 7b's runs (BPM is held after them, as after 3l's and
+# 3m's ``HELD_STEPS``), the clip rows of 7a's run_clip comparisons, and
+# 7b's per-rank clip seeds.
+MESH_STEPS = 130
+MESH_CLIP = 40
+MESH_SEEDS = (30, 31)
+# 7a's timing: alternating rounds of the one-rank mesh and mesh=None.
+MESH_ROUNDS = 8
+MESH_ROUND = 20
+
+
+def mesh_axes(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def hold_bpm(tag: str, bpm, tracked) -> None:
+    """Every ROI of every tracked stream within 6 of the clip's 72 BPM."""
+    hb = bpm.float().cpu()[tracked.cpu()]
+    log(f"[{tag}] BPM on the tracked streams: "
+        f"{sorted(set(hb.flatten().tolist()))}")
+    if not (bool(torch.isfinite(hb).all()) and bool(((hb - 72).abs() <= 6)
+                                                   .all())):
+        fail(f"[{tag}] BPM {hb.tolist()} not near 72 on the tracked streams")
+
+
+def mesh_one_rank(dev, card: str, head: str, e2e_losses, e2e_head
+                  ) -> collections.Counter:
+    """7a: ``distributed.global_mesh({"dp": 1, "tp": 1})`` on the card (a
+    world of one rank over NCCL, on a local store).  The flagship (64
+    streams, stand-ins with template heads, half tracked) through
+    ``MultiStreamEngine(mesh=...).step`` over ``MESH_STEPS`` frames of
+    phase 3's clip, counters set to 0 just before and read just after,
+    then the same through ``mesh=None``: state and outputs equal bit for
+    bit, K1/K3/K4 1/10/1 a step, BPM 72 on the tracked streams;
+    ``run_clip`` and ``run_clip_lagged`` (F = 4) over the first
+    ``MESH_CLIP`` frames equal their ``mesh=None`` runs; the e2e step over
+    the mesh (6d's, head placed by ``mesh.shard_params``) equals 6d's
+    losses and head within rtol 1e-6.  The host clock of both paths is
+    compared in ``MESH_ROUNDS`` alternating rounds.  Returns the mesh
+    run's launches."""
+    import torch.distributed as dist
+
+    from bp_from_video_tpu_torch.config import flagship_config
+    from bp_from_video_tpu_torch.parallel import distributed
+    from bp_from_video_tpu_torch.parallel.streams import MultiStreamEngine
+    mesh = distributed.global_mesh({"dp": 1, "tp": 1})
+    log(f"[7a] world of {dist.get_world_size()} rank, backend "
+        f"{dist.get_backend()}, mesh {mesh_axes(mesh)} on {card}")
+    cfg = flagship_config()
+    s, h, w = cfg.num_streams, cfg.frame_height, cfg.frame_width
+    clip = pulse_clip(MESH_STEPS, s, h, w, split=300, seed=3, device=dev)
+    plain = MultiStreamEngine(cfg)
+    ms = MultiStreamEngine(cfg, mesh=mesh)
+    params = template_heads(plain.params)
+    tracked = torch.arange(s, device=dev) < s // 2
+    start = tracked_state(plain.engine, h, w, tracked)
+    ts = [torch.full((s,), (i + 1) / 30.0, device=dev)
+          for i in range(MESH_STEPS)]
+
+    def run(engine, p, state, n=MESH_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(n):
+            state, out = engine.step(p, state, clip[i], ts[i])
+        torch.cuda.synchronize()
+        return state, out, (time.perf_counter() - t) * 1e3 / n
+    placed = ms.shard_params(params)
+    zero_counters()
+    st_m, out_m, ms_mesh = run(ms, placed, ms.shard_state(start))
+    launches = {k: fn.launches for k, fn in counters().items()}
+    st_p, out_p, ms_plain = run(plain, params, start)
+    same = (np_trees_equal(host_tree(ms.gather(st_m)), host_tree(st_p))
+            and np_trees_equal(host_tree(ms.gather(out_m)),
+                               host_tree(out_p)))
+    per = {k: v / MESH_STEPS for k, v in launches.items() if v}
+    log(f"[7a] MultiStreamEngine(mesh=1x1).step, S={s} {h}x{w} bf16, "
+        f"{MESH_STEPS} steps on {card}: {ms_mesh:.3f} ms a step = "
+        f"{s * 1e3 / ms_mesh:.1f} frames/s (host clock, synchronized, the "
+        f"first steps included); mesh=None {ms_plain:.3f} ms; launches a "
+        f"step {per}; state and outputs equal mesh=None bit for bit: {same}")
+    # The host clock drifts by several ms a step between runs of one path:
+    # alternate the two paths in short rounds (ABBA) from the start state
+    # and compare the medians with the rounds' spread.
+    rounds = {"mesh=None": [], "mesh": []}
+    pair = (("mesh=None", plain, params, lambda: start),
+            ("mesh", ms, placed, lambda: ms.shard_state(start)))
+    for k in range(MESH_ROUNDS):
+        for name, engine, p, st in (pair if k % 2 == 0 else pair[::-1]):
+            rounds[name].append(run(engine, p, st(), MESH_ROUND)[2])
+    log(f"[7a] host clock in {MESH_ROUNDS} alternating rounds of "
+        f"{MESH_ROUND} steps (ABBA) on {card}: " + "; ".join(
+            f"{k} median {statistics.median(v):.3f} ms a step (rounds "
+            f"{min(v):.3f}-{max(v):.3f})" for k, v in rounds.items()))
+    if not same or per != {"multi_crop": 1, "dense_s2_block": 10,
+                           "roi_samples": 1}:
+        fail("[7a] the one-rank mesh step differs from mesh=None or did not "
+             "launch K1/K3/K4 1/10/1 a step")
+    hold_bpm("7a", ms.gather(out_m.bpm), tracked)
+    del st_m, out_m, st_p, out_p
+    n, f = MESH_CLIP, LAGGED
+    tsc = torch.stack(ts[:n])
+    a = ms.run_clip(ms.shard_params(params), ms.shard_state(start), clip[:n],
+                    tsc)
+    b = plain.run_clip(params, start, clip[:n], tsc)
+    win = clip[:n].reshape((n // f, f) + clip.shape[1:])
+    c = ms.run_clip_lagged(ms.shard_params(params), ms.shard_state(start),
+                           win, tsc.reshape(n // f, f, s))
+    d = plain.run_clip_lagged(params, start, win,
+                              tsc.reshape(n // f, f, s))
+    clips = tuple(np_trees_equal(host_tree((ms.gather(x[0]),
+                                            ms.gather(x[1], dim=1))),
+                                 host_tree(y)) for x, y in ((a, b), (c, d)))
+    log(f"[7a] run_clip over {n} frames and run_clip_lagged (F={f}) over "
+        f"{n // f} windows through the mesh equal mesh=None: {clips}")
+    if not all(clips):
+        fail("[7a] run_clip or run_clip_lagged through the mesh differs")
+    del a, b, c, d, win
+    _, losses, head_m = e2e_train(clip, dev, card, head, mesh=mesh,
+                                  tag="7a e2e")
+    err = max(float(((x - y).abs() / y.abs().clamp_min(1e-30)).max())
+              for x, y in zip([losses] + head_m, [e2e_losses] + e2e_head))
+    log(f"[7a] e2e step over the 1x1 mesh against 6d's: largest relative "
+        f"difference of the losses and the head {err:.3g} (rtol 1e-6)")
+    if not all(torch.allclose(x, y, rtol=1e-6, atol=0) for x, y in
+               zip([losses] + head_m, [e2e_losses] + e2e_head)):
+        fail("[7a] the e2e step over the mesh differs from 6d's")
+    dist.destroy_process_group()
     return collections.Counter(launches)
+
+
+def mesh_rank(steps: int, labels: np.ndarray, head: str) -> dict:
+    """7b, one of two ranks sharing the card (gloo): the flagship's 64
+    streams split over dp = 2, this rank's 32 from ``pulse_clip`` of its
+    own seed, half of them tracked; ``steps`` steps timed with the launch
+    counters set to 0 just before and read just after, then one e2e step
+    (the head replicated, its gradient averaged over dp).  Returns the
+    launches, host clock, local state and last outputs, the gathered
+    outputs (stream order) and the e2e loss and head."""
+    import torch.distributed as dist
+
+    from bp_from_video_tpu_torch.config import flagship_config
+    from bp_from_video_tpu_torch.models.runner import tree_leaves
+    from bp_from_video_tpu_torch.parallel import distributed
+    from bp_from_video_tpu_torch.parallel.streams import MultiStreamEngine
+    from bp_from_video_tpu_torch.train import bp_regressor as bpr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    mesh = distributed.global_mesh({"dp": 2})
+    cfg = flagship_config()
+    s, h, w = cfg.num_streams, cfg.frame_height, cfg.frame_width
+    ms = MultiStreamEngine(cfg, mesh=mesh)
+    dev = ms.device
+    lo, hi = ms.stream_slice
+    params = template_heads(ms.params)
+    clip = pulse_clip(steps + 1, hi - lo, h, w, split=300,
+                      seed=MESH_SEEDS[rank], device=dev)
+    state = ms.shard_state(tracked_state(
+        ms.engine, h, w, torch.arange(s, device=dev) % (s // 2) < s // 4))
+    placed = ms.shard_params(params)
+    ts = [torch.full((hi - lo,), (i + 1) / 30.0, device=dev)
+          for i in range(steps + 1)]
+    zero_counters()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(steps):
+        state, out = ms.step(placed, state, clip[i], ts[i])
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t) * 1e3 / steps
+    launches = {k: fn.launches for k, fn in counters().items()}
+    gathered = ms.gather(_compact_out(out))
+    sig = cfg.signal
+    with np.load(head) as d:
+        norm = {k: torch.from_numpy(d[k]).to(dev)
+                for k in ("f_mu", "f_sd", "l_mu", "l_sd")}
+    tstate, opt = bpr.init_train_state(
+        torch.Generator().manual_seed(0),
+        2 * (sig.num_signals + sig.num_pairs), device=dev)
+    e2e = bpr.make_e2e_train_step(ms.step, opt, norm, mesh=mesh)
+    state, tstate, loss = e2e(placed, state, tstate, clip[steps], ts[steps],
+                              ms.shard_frames(labels))
+
+    return dict(rank=rank, slice=(lo, hi), launches=launches,
+                ms=ms_step, state=host_tree(state), out=host_tree(out),
+                gathered=host_tree(gathered), loss=float(loss),
+                head=host_tree(tree_leaves(tstate.params)))
+
+
+def host_tree(tree):
+    """A nest of tensors (DTensors: their local shards) as numpy on the
+    host, bf16 as f32 (exact; numpy has no bf16)."""
+    from bp_from_video_tpu_torch.models.runner import map_leaves
+    from bp_from_video_tpu_torch.parallel import mesh as mesh_lib
+
+    def host(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return map_leaves(host, mesh_lib.to_local(tree))
+
+
+def np_trees_equal(a, b) -> bool:
+    """Two nests of numpy arrays equal leaf for leaf, NaN pattern
+    included."""
+    from bp_from_video_tpu_torch.models.runner import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        (x is None and y is None) or (
+            x.dtype == y.dtype and np.array_equal(
+                x, y, equal_nan=x.dtype.kind == "f"))
+        for x, y in zip(la, lb))
+
+
+def _compact_out(out):
+    from bp_from_video_tpu_torch.parallel.streams import ClipOutputs
+    return ClipOutputs(out.bpm, out.ptt, out.curr_fs)
+
+
+def mesh_two_ranks(dev, card: str, head: str) -> collections.Counter:
+    """7b: two ranks sharing the card over gloo (NCCL refuses two ranks on
+    one device), started by ``parallel.dryrun.spawn``: dp = 2, 32 streams a
+    rank (``mesh_rank``).  Each rank's state and outputs after
+    ``MESH_STEPS`` steps, and after one more e2e step, equal a one-rank
+    ``MultiStreamEngine`` of 32 streams run here on the same half (the
+    per-shard semantics: ``detector_subbatch`` acts per shard); the
+    gathered outputs are in stream order; BPM 72 on the tracked streams;
+    K1/K3/K4 1/10/1 a step on each rank; the e2e step's loss and head
+    within rtol 1e-5 of the unsharded head step on the same features.
+    Returns both ranks' launches."""
+    import dataclasses
+
+    from bp_from_video_tpu_torch.config import flagship_config
+    from bp_from_video_tpu_torch.models.runner import map_leaves, tree_leaves
+    from bp_from_video_tpu_torch.parallel.dryrun import spawn
+    from bp_from_video_tpu_torch.parallel.streams import MultiStreamEngine
+    from bp_from_video_tpu_torch.train import bp_regressor as bpr
+    cfg = flagship_config()
+    s, h, w = cfg.num_streams, cfg.frame_height, cfg.frame_width
+    labels = np.random.default_rng(1).uniform(
+        [110.0, 70.0], [130.0, 86.0], (s, 2)).astype(np.float32)
+    t = time.perf_counter()
+    ranks = spawn(mesh_rank, 2, (MESH_STEPS, labels, head), device="cuda",
+                  backend="gloo", deadline=600)
+    log(f"[7b] two ranks over gloo on one {card}: spawned, ran and "
+        f"returned in {time.perf_counter() - t:.1f} s")
+    total = collections.Counter()
+    half = dataclasses.replace(cfg, num_streams=s // 2)
+    feats = []
+    for r in ranks:
+        lo, hi = r["slice"]
+        per = {k: v / MESH_STEPS for k, v in r["launches"].items() if v}
+        log(f"[7b] rank {r['rank']} streams [{lo}, {hi}) on {card}: "
+            f"{r['ms']:.3f} ms a step = {(hi - lo) * 1e3 / r['ms']:.1f} "
+            f"frames/s (host clock, {MESH_STEPS} steps, the first "
+            f"included; the card time-shared with the other rank); "
+            f"launches a step {per}")
+        if per != {"multi_crop": 1, "dense_s2_block": 10, "roi_samples": 1}:
+            fail(f"[7b] rank {r['rank']} did not launch K1/K3/K4 1/10/1 a "
+                 "step")
+        total.update(r["launches"])
+        one = MultiStreamEngine(half)
+        params = template_heads(one.params)
+        clip = pulse_clip(MESH_STEPS + 1, hi - lo, h, w, split=300,
+                          seed=MESH_SEEDS[r["rank"]], device=dev)
+        tracked = torch.arange(hi - lo, device=dev) < (hi - lo) // 2
+        state = tracked_state(one.engine, h, w, tracked)
+        for i in range(MESH_STEPS):
+            state, out = one.step(params, state, clip[i], torch.full(
+                (hi - lo,), (i + 1) / 30.0, device=dev))
+        same_out = np_trees_equal(r["out"], host_tree(out))
+        order = np_trees_equal(
+            map_leaves(lambda x: x[lo:hi], r["gathered"]),
+            host_tree(_compact_out(out)))
+        hold_bpm(f"7b rank {r['rank']}", out.bpm, tracked)
+        state, out = one.step(params, state, clip[MESH_STEPS], torch.full(
+            (hi - lo,), (MESH_STEPS + 1) / 30.0, device=dev))
+        same_state = np_trees_equal(r["state"], host_tree(state))
+        log(f"[7b] rank {r['rank']}: outputs after {MESH_STEPS} steps and "
+            f"state after the e2e step equal the one-rank engine of "
+            f"{hi - lo} streams on its half, bit for bit: {same_out}, "
+            f"{same_state}; its rows of the gathered [{s}, ...] outputs: "
+            f"{order}")
+        if not (same_out and same_state and order):
+            fail(f"[7b] rank {r['rank']} differs from its per-shard run")
+        feats.append(bpr.features_from_outputs(out.bpm, out.ptt))
+        del clip, state, out, one
+        torch.cuda.empty_cache()
+    with np.load(head) as d:
+        norm = {k: torch.from_numpy(d[k]).to(dev)
+                for k in ("f_mu", "f_sd", "l_mu", "l_sd")}
+    tstate, opt = bpr.init_train_state(torch.Generator().manual_seed(0),
+                                       feats[0].shape[-1], device=dev)
+    _, loss = bpr.train_step(
+        opt, tstate, (torch.cat(feats) - norm["f_mu"]) / norm["f_sd"],
+        (torch.from_numpy(labels).to(dev) - norm["l_mu"]) / norm["l_sd"])
+    want = [loss.cpu()] + [x.detach().cpu() for x in
+                           tree_leaves(tstate.params)]
+    errs = [max(float(((torch.as_tensor(x) - y).abs()
+                       / y.abs().clamp_min(1e-30)).max())
+                for x, y in zip([r["loss"]] + r["head"], want))
+            for r in ranks]
+    log(f"[7b] e2e step over dp=2: loss {ranks[0]['loss']:.6f} / "
+        f"{ranks[1]['loss']:.6f}, unsharded {want[0]:.6f}; largest relative "
+        f"difference of loss and head per rank {errs} (rtol 1e-5)")
+    if max(errs) > 1e-5:
+        fail("[7b] the e2e step over dp=2 differs from the unsharded step")
+    return total
 
 
 def profile(engine, params, state, clip, t0, out_dir, path, render=None,
@@ -2794,7 +3132,9 @@ def main():
     t = time.perf_counter()
     bp_hud(rot_out, rot_cfg, clip[ROT_STEPS - 1], here)
     del rot_out
-    total.update(e2e_train(clip, dev, card, os.path.join(here, PREDICTOR)))
+    launches, e2e_losses, e2e_head = e2e_train(clip, dev, card,
+                                               os.path.join(here, PREDICTOR))
+    total.update(launches)
     log(f"phase 6a, 6d: the BP head on the HUD, end-to-end training over the "
         f"flagship engine through K1, K3, K4 ({time.perf_counter() - t:.1f} "
         "s)")
@@ -2862,6 +3202,19 @@ def main():
         "pipelined and sequential through K1 and K4 (weighted); "
         f"process_videos card and CPU agree ({time.perf_counter() - t:.1f} "
         "s)")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    total.update(mesh_one_rank(dev, card, os.path.join(here, PREDICTOR),
+                               e2e_losses, e2e_head))
+    log(f"phase 7a: one rank over NCCL: the mesh step, run_clip, "
+        f"run_clip_lagged and the e2e step equal mesh=None through K1, K3, "
+        f"K4 ({time.perf_counter() - t:.1f} s)")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    total.update(mesh_two_ranks(dev, card, os.path.join(here, PREDICTOR)))
+    log(f"phase 7b: two ranks over gloo on the one card: each rank equals "
+        f"its per-shard run through K1, K3, K4; the e2e step over dp=2 "
+        f"equals the unsharded one ({time.perf_counter() - t:.1f} s)")
     launches = dict(total)
 
     # Each kernel's launches summed over every path of phases 3 and 5.

@@ -179,12 +179,6 @@ def test_pipelined_run_to_max_frames(videos, monkeypatch):
     assert ts.shape == (8, 2) and np.all(np.diff(ts, axis=0) > 0)
 
 
-def test_pipelined_mesh_raises_naming_item_13b(videos):
-    with pytest.raises(NotImplementedError, match="13b"):
-        pipelined.run(tiny_config(tconfig), [CaptureConfig(path=videos[0])],
-                      mesh=object(), show=False, device="cpu")
-
-
 def _plain(x):
     """A config as plain data: enums by value, tuples as lists."""
     if isinstance(x, enum.Enum):

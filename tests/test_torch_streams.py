@@ -244,12 +244,6 @@ def test_make_display_step_matches_reference(pair):
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
 
 
-def test_mesh_raises_naming_item_13b():
-    cfg = tiny_config(tconfig, frame_height=H, frame_width=W, num_streams=S)
-    with pytest.raises(NotImplementedError, match="13b"):
-        MultiStreamEngine(cfg, mesh=object(), device="cpu")
-
-
 def test_default_device_is_cuda():
     """``device=None`` means CUDA: without a card it raises."""
     cfg = tiny_config(tconfig, frame_height=H, frame_width=W, num_streams=S)
