@@ -17,8 +17,16 @@ stand-in runs its packed stem twin ``stem_p``, a compiled graph is
 compiled to take its input packed (``packed_inputs``).  Without
 ``use_pallas`` the crops are plain separable resamples and the nets run as
 plain convolutions (a net that takes packed crops gets its crop packed in
-the graph).  The detectors sit behind one batch-level host branch (a
-device-to-host sync per step while any stream needs detection is checked).
+the graph).  The detectors sit behind one batch-level host branch per
+landmarker: a device-to-host read per step of how many streams need
+detection (counted as ``sync.face_gate`` / ``sync.hand_gate``).
+
+Stages are named with ``utils/profiling.span`` (``bpv.gate.*``,
+``bpv.sync.*``, ``bpv.detect.*``, ``bpv.crop``, ``bpv.net.*``,
+``bpv.track.*``, ``bpv.segment``: ranges only while a profiler records;
+the engine opens ``bpv.runner`` around them), and the gates count their
+syncs and detector rows with ``utils/profiling.count`` from numbers
+already on the host.
 
 Rotation modes (``InferenceConfig.resolved_rotation_mode``): ``cover``
 crops the axis-aligned cover of each tracking rect; ``exact`` and ``shear``
@@ -74,6 +82,7 @@ from bp_from_video_tpu_torch.models import anchors as anchors_lib
 from bp_from_video_tpu_torch.models import blaze, detection, warp
 from bp_from_video_tpu_torch.models import tflite_compiler as tc
 from bp_from_video_tpu_torch.ops.roi import Detections, is_planar_frames
+from bp_from_video_tpu_torch.utils.profiling import count, span
 
 Tensor = torch.Tensor
 
@@ -84,6 +93,8 @@ NUM_HAND_LANDMARKS = 21
 NUM_FACE_DET_KPS = 6
 NUM_PALM_KPS = 7
 MAX_FACE_DETS = 4
+# The detector behind each landmarker's gate, as counters name it.
+_DETECTOR = {"face": "face", "hand": "palm"}
 SEG_CLASSES = 6
 # The selfie-multiclass class the live pipeline consumes: face skin.
 SEG_SKIN_CLASS = 3
@@ -666,10 +677,12 @@ class InferenceRunner:
                  < nms.count[:, None])
         return warp.rect_arr(r), valid
 
-    def _subbatch_detect(self, nhwc_at, need: Tensor, age: Tensor,
-                         cur_rects: Tensor, det_batch, k_max: int):
+    def _subbatch_detect(self, nhwc_at, need: Tensor, n_need: int,
+                         age: Tensor, cur_rects: Tensor, det_batch,
+                         k_max: int):
         """Run ``det_batch`` on (up to) ``k_max`` streams — the most-starved
-        ones needing detection — instead of all S.  Returns the merged
+        ones needing detection — instead of all S, when any of the
+        ``n_need`` streams of ``need`` does.  Returns the merged
         (det_rects, det_valid, served); unserved streams keep ``cur_rects``
         with valid=False and are retried next frame, oldest first."""
         s = need.shape[0]
@@ -681,7 +694,7 @@ class InferenceRunner:
         valid_shape = (s,) + cur_rects.shape[1:-1]
         det_valid = torch.zeros(valid_shape, dtype=torch.bool,
                                 device=need.device)
-        if bool(need.any()):                    # host sync: batch-level gate
+        if n_need:
             sub_rects, sub_valid = det_batch(nhwc_at(idx))
             det_rects[idx] = torch.where(nd_r, sub_rects, cur_rects[idx])
             det_valid[idx] = sub_valid & sub_need.reshape(
@@ -694,23 +707,36 @@ class InferenceRunner:
         k = self.cfg.detector_subbatch
         return s if k <= 0 else min(k, s)
 
-    def _detect_gated(self, nhwc_at, tracking_all: Tensor, need: Tensor,
-                      age: Tensor, cur: Tensor, cur_ok: Tensor, det_batch):
-        """VIDEO-mode detection for one model kind: the bounded sub-batch
-        when it is smaller than the batch, else every stream whenever any
-        needs it.  Returns (det_rects, det_valid, new_age)."""
-        s = need.shape[0]
-        k_max = self._det_subbatch(s)
-        if k_max < s:
-            rects, valid, served = self._subbatch_detect(
-                nhwc_at, need, age, cur, det_batch, k_max)
-            return rects, valid, torch.where(need & ~served, age + 1, 0
-                                             ).to(torch.int32)
-        if bool(tracking_all):                  # host sync: batch-level gate
-            rects, valid = cur, cur_ok
-        else:
-            rects, valid = det_batch(nhwc_at(None))
-        return rects, valid, torch.zeros_like(age)
+    def _detect_gated(self, kind: str, nhwc_at, need: Tensor, age: Tensor,
+                      cur: Tensor, cur_ok: Tensor, det_batch):
+        """VIDEO-mode detection for one landmarker (``kind`` "face" or
+        "hand"): the bounded sub-batch when it is smaller than the batch,
+        else every stream whenever any needs it.  Returns (det_rects,
+        det_valid, new_age).  How many streams need detection is the
+        gate's one host read; the detector then runs on ``k_max`` rows
+        (every stream on the whole-batch path) and, with the priority
+        order, serves the first min(n_need, k_max) of them."""
+        with span(f"bpv.gate.{kind}"):
+            s = need.shape[0]
+            k_max = self._det_subbatch(s)
+            total = need.sum()
+            with span(f"bpv.sync.{kind}_gate"):
+                n_need = int(total)         # host sync: sync.<kind>_gate
+            count(f"sync.{kind}_gate")
+            if n_need:
+                det = _DETECTOR[kind]
+                count(f"det.{det}.rows", k_max)
+                count(f"det.{det}.served", min(n_need, k_max))
+            if k_max < s:
+                rects, valid, served = self._subbatch_detect(
+                    nhwc_at, need, n_need, age, cur, det_batch, k_max)
+                return rects, valid, torch.where(need & ~served, age + 1, 0
+                                                 ).to(torch.int32)
+            if not n_need:
+                rects, valid = cur, cur_ok
+            else:
+                rects, valid = det_batch(nhwc_at(None))
+            return rects, valid, torch.zeros_like(age)
 
     def _stem_operands(self, key: str, params):
         """(w HWIO, bias, PReLU slopes or None) of a net's stem."""
@@ -800,12 +826,13 @@ class InferenceRunner:
         presence f32 [B]).  ``crops``: 2x2-packed, pre-scaled crops
         [B, 12, S/2, S/2] (``packed``: K1's crops of a net that takes them
         packed), or planar pre-scaled crops [B, 3, S, S]."""
-        if packed and key in self._stem_src:
-            stems = self._fused_stem_batch(key, params, crops)
-            if self.cfg.fused_trunk:
-                return self._fused_trunk_batch(key, params, stems)
-            return self._landmark_from_stem(key, params, stems)
-        return self._landmark_from_crop(key, params, crops)
+        with span(f"bpv.net.{key}"):
+            if packed and key in self._stem_src:
+                stems = self._fused_stem_batch(key, params, crops)
+                if self.cfg.fused_trunk:
+                    return self._fused_trunk_batch(key, params, stems)
+                return self._landmark_from_stem(key, params, stems)
+            return self._landmark_from_crop(key, params, crops)
 
     # -- crops ----------------------------------------------------------------
 
@@ -905,9 +932,11 @@ class InferenceRunner:
                 if valid[k] is not None:
                     tilt = torch.where(valid[k], tilt, 0.0)
                 gated[k] = (tilt, tilt > self._gate_rad)
-            # host sync: batch-level gate (both kinds' counts in one read)
-            counts = dict(zip(gated, torch.stack(
-                [g.sum() for _, g in gated.values()]).tolist()))
+            # host sync: sync.hybrid_gate, both kinds' counts in one read
+            totals = torch.stack([g.sum() for _, g in gated.values()])
+            with span("bpv.sync.hybrid_gate"):
+                counts = dict(zip(gated, totals.tolist()))
+            count("sync.hybrid_gate")
             k_sub = self.cfg.shear_subbatch
             caps = {k: min(k_sub, s * (raws[k].shape[1]
                                        if raws[k].ndim == 3 else 1))
@@ -970,26 +999,27 @@ class InferenceRunner:
 
         if self.cfg.face_detector:
             # Every frame of every stream, ungated: one batched detector.
-            nms = detection.sort_by_area_desc(self._run_detector(
-                "face_det", detection.FACE_DECODE, self.face_anchors,
-                params["face_det"], nhwc_at(None), "pm1", MAX_FACE_DETS))
-            res = res._replace(face_detector=Detections(
-                bbox=torch.round(nms.boxes),
-                points=_clip_floor(nms.kps, self.w, self.h),
-                count=nms.count))
+            with span("bpv.detect.face_all"):
+                nms = detection.sort_by_area_desc(self._run_detector(
+                    "face_det", detection.FACE_DECODE, self.face_anchors,
+                    params["face_det"], nhwc_at(None), "pm1", MAX_FACE_DETS))
+                res = res._replace(face_detector=Detections(
+                    bbox=torch.round(nms.boxes),
+                    points=_clip_floor(nms.kps, self.w, self.h),
+                    count=nms.count))
 
         rect_a = det_ok = None
         new_face_rect, new_face_tracking = state.face_rect, state.face_tracking
         new_face_age = state.face_det_age
         if self.cfg.face_landmarker:
             def det_faces(f):
-                return self._face_rects(params, f)
+                with span("bpv.detect.face"):
+                    return self._face_rects(params, f)
             if video:
                 need = ~state.face_tracking
                 det_rects, det_ok_d, new_face_age = self._detect_gated(
-                    nhwc_at, state.face_tracking.all(), need,
-                    state.face_det_age, state.face_rect,
-                    torch.ones_like(need), det_faces)
+                    "face", nhwc_at, need, state.face_det_age,
+                    state.face_rect, torch.ones_like(need), det_faces)
                 rect_a = torch.where(state.face_tracking[:, None],
                                      state.face_rect, det_rects)
                 det_ok = state.face_tracking | det_ok_d
@@ -1002,15 +1032,15 @@ class InferenceRunner:
         new_hand_age = state.hand_det_age
         if self.cfg.hand_landmarker:
             def det_palms(f):
-                return self._palm_rects(params, f)
+                with span("bpv.detect.palm"):
+                    return self._palm_rects(params, f)
             if video:
                 # A stream re-detects when ANY of its hand slots lost
                 # tracking.
                 need = ~state.hand_tracking.all(-1)
                 det_rects, det_valid, new_hand_age = self._detect_gated(
-                    nhwc_at, state.hand_tracking.all(), need,
-                    state.hand_det_age, state.hand_rects,
-                    state.hand_tracking, det_palms)
+                    "hand", nhwc_at, need, state.hand_det_age,
+                    state.hand_rects, state.hand_tracking, det_palms)
                 rects_a, slot_ok = _associate_hand_dets(
                     state.hand_tracking, state.hand_rects, det_rects,
                     det_valid)
@@ -1025,63 +1055,74 @@ class InferenceRunner:
         if self.cfg.hand_landmarker:
             raws["hand_lm"], valid["hand_lm"] = (self._safe_rect(rects_a),
                                                  slot_ok)
-        crops = self._crop_stage(frames_rgb, planar_in, nhwc_at, raws, valid)
+        with span("bpv.crop"):
+            crops = self._crop_stage(frames_rgb, planar_in, nhwc_at, raws,
+                                     valid)
 
         if self.cfg.face_landmarker:
             face_crops, face_prect, packed = crops["flm_lm"]
             lm, presences = self._landmarks("flm_lm", params["flm_lm"],
                                             face_crops, packed)
-            pts = self._project_lm("flm_lm", lm, face_prect)     # [S, L, 2]
-            next_rects = warp.rect_arr(warp.rect_transform(
-                warp.landmarks_to_rect(pts, *FACE_ROT_LANDMARKS, 0.0),
-                scale=1.5))
-            present = det_ok & (presences > PRESENCE_THRESHOLD)
-            new_face_rect = torch.where(present[:, None], next_rects,
-                                        state.face_rect)
-            new_face_tracking = present
-            pts_i = _clip_floor(pts, self.w, self.h)
-            bbox = torch.cat([pts_i.amin(1), pts_i.amax(1)], -1)
-            res = res._replace(face_landmarker=Detections(
-                bbox=torch.where(present[:, None], bbox, float("nan"))[:, None],
-                points=torch.where(present[:, None, None], pts_i,
-                                   float("nan"))[:, None],
-                count=present.to(torch.int32)))
+            with span("bpv.track.face"):
+                pts = self._project_lm("flm_lm", lm, face_prect)  # [S, L, 2]
+                next_rects = warp.rect_arr(warp.rect_transform(
+                    warp.landmarks_to_rect(pts, *FACE_ROT_LANDMARKS, 0.0),
+                    scale=1.5))
+                present = det_ok & (presences > PRESENCE_THRESHOLD)
+                new_face_rect = torch.where(present[:, None], next_rects,
+                                            state.face_rect)
+                new_face_tracking = present
+                pts_i = _clip_floor(pts, self.w, self.h)
+                bbox = torch.cat([pts_i.amin(1), pts_i.amax(1)], -1)
+                res = res._replace(face_landmarker=Detections(
+                    bbox=torch.where(present[:, None], bbox,
+                                     float("nan"))[:, None],
+                    points=torch.where(present[:, None, None], pts_i,
+                                       float("nan"))[:, None],
+                    count=present.to(torch.int32)))
 
         if self.cfg.hand_landmarker:
             nh = self.cfg.max_hands
             hand_crops, hand_prect, packed = crops["hand_lm"]
             lm, presences = self._landmarks("hand_lm", params["hand_lm"],
                                             hand_crops, packed)
-            lm = lm.reshape(s, nh, -1)
-            presences = presences.reshape(s, nh)
-            pts = self._project_lm("hand_lm", lm, hand_prect)  # [S,nh,L,2]
-            next_rects = warp.rect_arr(warp.rect_transform(
-                warp.landmarks_to_rect(pts, *HAND_ROT_LANDMARKS,
-                                       math.pi / 2),
-                scale=2.0, shift_y=-0.1))
-            present = slot_ok & (presences > PRESENCE_THRESHOLD)
-            new_hand_rects = torch.where(present[..., None], next_rects,
-                                         state.hand_rects)
-            new_hand_tracking = present
-            pts_i = _clip_floor(pts, self.w, self.h)
-            bbox = torch.cat([pts_i.amin(2), pts_i.amax(2)], -1)  # [S,nh,4]
-            area = (bbox[..., 2] - bbox[..., 0]) * (bbox[..., 3] - bbox[..., 1])
-            order = torch.argsort(torch.where(present, -area, float("inf")),
-                                  dim=-1, stable=True)
-            pres_s = torch.gather(present, 1, order)
-            bbox_s = torch.gather(bbox, 1, order[..., None].expand_as(bbox))
-            pts_s = torch.gather(pts_i, 1, order[..., None, None].expand_as(
-                pts_i))
-            res = res._replace(hand_landmarker=Detections(
-                bbox=torch.where(pres_s[..., None], bbox_s, float("nan")),
-                points=torch.where(pres_s[..., None, None], pts_s,
-                                   float("nan")),
-                count=present.sum(-1).to(torch.int32)))
+            with span("bpv.track.hand"):
+                lm = lm.reshape(s, nh, -1)
+                presences = presences.reshape(s, nh)
+                pts = self._project_lm("hand_lm", lm, hand_prect)  # [S,nh,L,2]
+                next_rects = warp.rect_arr(warp.rect_transform(
+                    warp.landmarks_to_rect(pts, *HAND_ROT_LANDMARKS,
+                                           math.pi / 2),
+                    scale=2.0, shift_y=-0.1))
+                present = slot_ok & (presences > PRESENCE_THRESHOLD)
+                new_hand_rects = torch.where(present[..., None], next_rects,
+                                             state.hand_rects)
+                new_hand_tracking = present
+                pts_i = _clip_floor(pts, self.w, self.h)
+                bbox = torch.cat([pts_i.amin(2), pts_i.amax(2)],
+                                 -1)                              # [S,nh,4]
+                area = ((bbox[..., 2] - bbox[..., 0])
+                        * (bbox[..., 3] - bbox[..., 1]))
+                order = torch.argsort(
+                    torch.where(present, -area, float("inf")), dim=-1,
+                    stable=True)
+                pres_s = torch.gather(present, 1, order)
+                bbox_s = torch.gather(bbox, 1,
+                                      order[..., None].expand_as(bbox))
+                pts_s = torch.gather(pts_i, 1,
+                                     order[..., None, None].expand_as(pts_i))
+                res = res._replace(hand_landmarker=Detections(
+                    bbox=torch.where(pres_s[..., None], bbox_s,
+                                     float("nan")),
+                    points=torch.where(pres_s[..., None, None], pts_s,
+                                       float("nan")),
+                    count=present.sum(-1).to(torch.int32)))
 
         if self.cfg.person_segmenter:
             planar = frames_rgb if planar_in else frames_rgb.permute(0, 3, 1,
                                                                      2)
-            seg_class, seg_conf = self._segment(params["seg"], planar)
+            with span("bpv.segment"):
+                seg_class, seg_conf = self._segment(params["seg"], planar)
             res = res._replace(seg_class=seg_class, seg_conf=seg_conf,
                                seg_valid=torch.ones_like(res.seg_valid))
 

@@ -22,6 +22,7 @@ from bp_from_video_tpu_torch.config import (SignalConfig,
                                             SignalProcessingMethod as M)
 from bp_from_video_tpu_torch.ops import fir, iir, tridiag
 from bp_from_video_tpu_torch.ops import signal as sig
+from bp_from_video_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -321,11 +322,13 @@ def process_signal(cfg: SignalConfig, x: Tensor, y: Tensor
                    ) -> tuple[Tensor, Tensor]:
     """Run the configured chain over signal rings (x, y: [..., N]); the
     chain only applies where >= 2 samples are valid and fs is finite,
-    elsewhere (x, y) pass through untouched."""
+    elsewhere (x, y) pass through untouched.  Each method is a span
+    ``bpv.dsp.<method>``."""
     st = ChainState(x=x, y=y, valid=sig.valid_y(y), block=sig.valid_x(x),
                     fs=sig.mean_fs(x))
     ok = ((st.valid.sum(-1) >= 2) & torch.isfinite(st.fs))[..., None]
     out = st
     for method in cfg.processing_methods:
-        out = _METHOD_FNS[method](cfg, out)
+        with span(f"bpv.dsp.{method.value}"):
+            out = _METHOD_FNS[method](cfg, out)
     return torch.where(ok, out.x, x), torch.where(ok, out.y, y)

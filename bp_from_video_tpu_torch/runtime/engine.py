@@ -9,6 +9,12 @@ pushes, the DSP chain, spectra (Lomb-Scargle, Welch or rFFT), BPM peaks,
 face-to-palm correlation and PTT peaks for a batch of streams.  Every
 state and output field carries a leading stream axis [S]; rings keep time
 on their last axis (the ROI ring on its second-to-last, before the 6-tuple).
+
+Each call is one ``bpv.step`` span with two halves under it: ``bpv.runner``
+(``InferenceRunner.predict_batch``, and the lagged step's tiling of the
+track state it takes) and ``bpv.signal`` (``bpv.roi``, ``bpv.sample``,
+``bpv.push``, ``bpv.dsp.<method>``, ``bpv.spectrum``, ``bpv.correlate``,
+``bpv.outputs``); each call counts ``steps`` (``utils/profiling``).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from bp_from_video_tpu_torch.models.runner import (InferenceRunner,
 from bp_from_video_tpu_torch.ops import chain, correlate, spectrum
 from bp_from_video_tpu_torch.ops import roi as roi_ops
 from bp_from_video_tpu_torch.ops import signal as sig
+from bp_from_video_tpu_torch.utils.profiling import count, span
 
 Tensor = torch.Tensor
 _NAN = float("nan")
@@ -76,9 +83,10 @@ def _raw_push(st: SignalState, samples: Tensor, timestamps: Tensor
               ) -> tuple[SignalState, Tensor]:
     """The raw ring pushed where ``timestamps`` is fresh (finite and not
     the ring's tail); returns (state, fresh)."""
-    fresh = torch.isfinite(timestamps) & (timestamps != st.raw_x[:, -1])
-    return st._replace(raw_x=sig.push_if(fresh, st.raw_x, timestamps),
-                       raw_y=sig.push_if(fresh, st.raw_y, samples)), fresh
+    with span("bpv.push"):
+        fresh = torch.isfinite(timestamps) & (timestamps != st.raw_x[:, -1])
+        return st._replace(raw_x=sig.push_if(fresh, st.raw_x, timestamps),
+                           raw_y=sig.push_if(fresh, st.raw_y, samples)), fresh
 
 
 def _group_range(xs: Tensor, ys: Tensor) -> Tensor:
@@ -136,14 +144,16 @@ class Engine:
         cfg = self.config.signal
         by_model = {ModelType.FACE_LANDMARKER: models.face_landmarker,
                     ModelType.HAND_LANDMARKER: models.hand_landmarker}
-        rois_now = roi_ops.calc_rois(cfg.roi_configs, by_model)
-        # A timestamp equal to the ring tail is a re-send of the frame
-        # already pushed: the ring must not advance.
-        fresh = torch.isfinite(timestamps) & (timestamps != st.roi_x[:, -1])
-        roi_x = sig.push_if(fresh, st.roi_x, timestamps)
-        roi_y = sig.push_if(fresh, st.roi_y, rois_now, dim=-2)
-        rois = sig.masked_mean(roi_y, as_int=True, vec=True)
-        return roi_x, roi_y, rois
+        with span("bpv.roi"):
+            rois_now = roi_ops.calc_rois(cfg.roi_configs, by_model)
+            # A timestamp equal to the ring tail is a re-send of the frame
+            # already pushed: the ring must not advance.
+            fresh = (torch.isfinite(timestamps)
+                     & (timestamps != st.roi_x[:, -1]))
+            roi_x = sig.push_if(fresh, st.roi_x, timestamps)
+            roi_y = sig.push_if(fresh, st.roi_y, rois_now, dim=-2)
+            rois = sig.masked_mean(roi_y, as_int=True, vec=True)
+            return roi_x, roi_y, rois
 
     def signal_step(self, st: SignalState, models: ModelResults,
                     frames_rgb: Tensor, timestamps: Tensor
@@ -153,14 +163,22 @@ class Engine:
         weighted by the segmenter's skin confidence when the segmenter
         runs), then :meth:`signal_post`."""
         roi_x, roi_y, rois = self.roi_stage(st, models, timestamps)
-        weights = None
-        if self.config.inference.person_segmenter:
-            weights = skin_confidence(models.seg_conf)
-        samples = roi_ops.sample_rois_batch(
-            frames_rgb, rois, self.config.signal.color_channel, weights,
-            use_pallas=self.config.inference.use_pallas)
+        samples = self._sample(frames_rgb, rois, models.seg_conf)
         return self.signal_post(st, roi_x, roi_y, rois, models, samples,
                                 timestamps)
+
+    def _sample(self, frames_rgb: Tensor, rois: Tensor, seg_conf: Tensor
+                ) -> Tensor:
+        """Pixel samples of ``rois`` [B, ns, 6] in frames [B, ...]
+        (kernel K4 with ``use_pallas``), weighted by the skin confidence
+        of ``seg_conf`` when the segmenter runs -> [B, ns]."""
+        with span("bpv.sample"):
+            weights = None
+            if self.config.inference.person_segmenter:
+                weights = skin_confidence(seg_conf)
+            return roi_ops.sample_rois_batch(
+                frames_rgb, rois, self.config.signal.color_channel, weights,
+                use_pallas=self.config.inference.use_pallas)
 
     def signal_post(self, st: SignalState, roi_x: Tensor, roi_y: Tensor,
                     rois: Tensor, models: ModelResults, samples: Tensor,
@@ -180,53 +198,64 @@ class Engine:
         s = raw_x.shape[0]
         x_b = raw_x[:, None, :].expand_as(raw_y)
         proc_x, proc_y = chain.process_signal(cfg, x_b, raw_y)
-        spec_x, spec_y = spectrum.transform_signal(cfg, proc_x, proc_y)
-        # The peak window is the spectrum's auto data range (the reference's
-        # effective behaviour, see ops/signal.peak_auto).
-        bpm_now = sig.peak_auto(spec_x, spec_y)[0] * 60.0          # [S, ns]
-        bpm_x = sig.push_if(fresh, st.bpm_x, timestamps)
-        bpm_y = sig.push_if(fresh, st.bpm_y, bpm_now)
+        with span("bpv.spectrum"):
+            spec_x, spec_y = spectrum.transform_signal(cfg, proc_x, proc_y)
 
         n = cfg.signal_max_samples
         p_cnt = max(cfg.num_pairs, 1)
-        if self._pairs:
-            outs = [correlate.correlate_pair(proc_x[:, a], proc_y[:, a],
-                                             proc_y[:, b])
-                    for a, b in self._pairs]
-            corr_x = torch.stack([c[0] for c in outs], 1)
-            corr_y = torch.stack([c[1] for c in outs], 1)
-            ptt_now = sig.peak_auto(corr_x, corr_y)[0] * 1000.0    # [S, P]
-        else:
-            corr_x = torch.full((s, p_cnt, 2 * n - 1), _NAN,
-                                device=raw_x.device)
-            corr_y = torch.full_like(corr_x, _NAN)
-            ptt_now = torch.full((s, p_cnt), _NAN, device=raw_x.device)
-        ptt_x = sig.push_if(fresh, st.ptt_x, timestamps)
-        ptt_y = sig.push_if(fresh, st.ptt_y, ptt_now)
+        with span("bpv.correlate"):
+            if self._pairs:
+                outs = [correlate.correlate_pair(proc_x[:, a], proc_y[:, a],
+                                                 proc_y[:, b])
+                        for a, b in self._pairs]
+                corr_x = torch.stack([c[0] for c in outs], 1)
+                corr_y = torch.stack([c[1] for c in outs], 1)
+            else:
+                corr_x = torch.full((s, p_cnt, 2 * n - 1), _NAN,
+                                    device=raw_x.device)
+                corr_y = torch.full_like(corr_x, _NAN)
 
-        bpm_mean = sig.masked_mean(bpm_y, as_int=True)
-        ptt_mean = sig.masked_mean(ptt_y, as_int=True)
-        mean_fs = sig.mean_fs(bpm_x)
-        curr_fs = 1.0 / (raw_x[:, -1] - raw_x[:, -2])
+        with span("bpv.outputs"):
+            # The peak window is the spectrum's auto data range (the
+            # reference's effective behaviour, see ops/signal.peak_auto).
+            bpm_now = sig.peak_auto(spec_x, spec_y)[0] * 60.0      # [S, ns]
+            bpm_x = sig.push_if(fresh, st.bpm_x, timestamps)
+            bpm_y = sig.push_if(fresh, st.bpm_y, bpm_now)
+            if self._pairs:
+                ptt_now = sig.peak_auto(corr_x, corr_y)[0] * 1000.0  # [S, P]
+            else:
+                ptt_now = torch.full((s, p_cnt), _NAN, device=raw_x.device)
+            ptt_x = sig.push_if(fresh, st.ptt_x, timestamps)
+            ptt_y = sig.push_if(fresh, st.ptt_y, ptt_now)
 
-        new = SignalState(st.roi_x, st.roi_y, raw_x, raw_y,
-                          bpm_x, bpm_y, ptt_x, ptt_y)
-        out = StepOutputs(models, rois, raw_x, raw_y, proc_x, proc_y,
-                          spec_x, spec_y, corr_x, corr_y, bpm_mean, ptt_mean,
-                          curr_fs, mean_fs, _group_range(proc_x, proc_y),
-                          _group_range(spec_x, spec_y),
-                          _group_range(corr_x, corr_y))
-        return new, out
+            bpm_mean = sig.masked_mean(bpm_y, as_int=True)
+            ptt_mean = sig.masked_mean(ptt_y, as_int=True)
+            mean_fs = sig.mean_fs(bpm_x)
+            curr_fs = 1.0 / (raw_x[:, -1] - raw_x[:, -2])
+
+            new = SignalState(st.roi_x, st.roi_y, raw_x, raw_y,
+                              bpm_x, bpm_y, ptt_x, ptt_y)
+            out = StepOutputs(models, rois, raw_x, raw_y, proc_x, proc_y,
+                              spec_x, spec_y, corr_x, corr_y, bpm_mean,
+                              ptt_mean, curr_fs, mean_fs,
+                              _group_range(proc_x, proc_y),
+                              _group_range(spec_x, spec_y),
+                              _group_range(corr_x, corr_y))
+            return new, out
 
     def batch_step(self, params, state: EngineState, frames_rgb: Tensor,
                    timestamps: Tensor) -> tuple[EngineState, StepOutputs]:
         """One frame per stream: frames uint8 [S, H, W, 3] or planar
         [S, 3, H, W], timestamps f32 [S] seconds."""
-        track, models = self.runner.predict_batch(params, state.track,
-                                                  frames_rgb)
-        signals, out = self.signal_step(state.signals, models, frames_rgb,
-                                        timestamps)
-        return EngineState(signals, track), out
+        with span("bpv.step"):
+            count("steps")
+            with span("bpv.runner"):
+                track, models = self.runner.predict_batch(
+                    params, state.track, frames_rgb)
+            with span("bpv.signal"):
+                signals, out = self.signal_step(state.signals, models,
+                                                frames_rgb, timestamps)
+            return EngineState(signals, track), out
 
     def batch_step_lagged(self, params, state: EngineState,
                           frames_rgb: Tensor, timestamps: Tensor
@@ -242,29 +271,40 @@ class Engine:
         last frame.  The ROI sampling of all F frames is one K4 launch:
         each (stream, ROI) sum is computed alone, so it is bit-equal to F
         launches of S streams."""
+        with span("bpv.step"):
+            count("steps")
+            f_n, s_n = timestamps.shape
+            flat = frames_rgb.reshape((f_n * s_n,) + frames_rgb.shape[2:])
+            with span("bpv.runner"):
+                tiled = map_leaves(
+                    lambda a: a.repeat((f_n,) + (1,) * (a.ndim - 1)),
+                    state.track)
+                track_flat, models_flat = self.runner.predict_batch(
+                    params, tiled, flat)
+            with span("bpv.signal"):
+                signals, out, new_track = self._lagged_signal(
+                    state.signals, track_flat, models_flat, flat, timestamps)
+            return EngineState(signals, new_track), out
+
+    def _lagged_signal(self, sig_st: SignalState, track_flat: TrackState,
+                       models_flat: ModelResults, flat: Tensor,
+                       timestamps: Tensor):
+        """The lagged step after its nets: the last frame's track, each
+        frame's ROIs and raw samples pushed in order, one K4 launch for
+        the window, the analysis on the last frame -> (signals, outputs,
+        track)."""
         f_n, s_n = timestamps.shape
-        flat = frames_rgb.reshape((f_n * s_n,) + frames_rgb.shape[2:])
-        tiled = map_leaves(
-            lambda a: a.repeat((f_n,) + (1,) * (a.ndim - 1)), state.track)
-        track_flat, models_flat = self.runner.predict_batch(params, tiled,
-                                                            flat)
         new_track = map_leaves(lambda a: a[(f_n - 1) * s_n:], track_flat)
         models_f = map_leaves(
             lambda a: a.reshape((f_n, s_n) + a.shape[1:]), models_flat)
-
-        sig_st, rois_f = state.signals, []
+        rois_f = []
         for f in range(f_n):
             roi_x, roi_y, rois = self.roi_stage(
                 sig_st, map_leaves(lambda a: a[f], models_f), timestamps[f])
             sig_st = sig_st._replace(roi_x=roi_x, roi_y=roi_y)
             rois_f.append(rois)
-        weights = None
-        if self.config.inference.person_segmenter:
-            weights = skin_confidence(models_flat.seg_conf)
-        samples = roi_ops.sample_rois_batch(
-            flat, torch.cat(rois_f), self.config.signal.color_channel,
-            weights, use_pallas=self.config.inference.use_pallas
-        ).reshape(f_n, s_n, -1)
+        samples = self._sample(flat, torch.cat(rois_f), models_flat.seg_conf
+                               ).reshape(f_n, s_n, -1)
         for f in range(f_n):
             sig_st, _ = _raw_push(sig_st, samples[f], timestamps[f])
 
@@ -273,7 +313,7 @@ class Engine:
         signals, out = self.signal_analyze(
             sig_st, rois_f[-1], map_leaves(lambda a: a[-1], models_f),
             ts_last, fresh_last)
-        return EngineState(signals, new_track), out
+        return signals, out, new_track
 
     def step(self, params, state: EngineState, frame_rgb: Tensor,
              timestamp: Tensor) -> tuple[EngineState, StepOutputs]:

@@ -1,6 +1,7 @@
-"""Cross-cutting utilities: stage profiling."""
+"""Cross-cutting utilities: stage profiling, spans and counters."""
 
-from bp_from_video_tpu_torch.utils.profiling import (StageProfiler, printit,
-                                                     profiler, timeit)
+from bp_from_video_tpu_torch.utils.profiling import (StageProfiler, count,
+                                                     printit, profiler, span,
+                                                     timeit)
 
-__all__ = ["StageProfiler", "profiler", "printit", "timeit"]
+__all__ = ["StageProfiler", "count", "profiler", "printit", "span", "timeit"]

@@ -1,0 +1,10 @@
+"""Milliseconds a call the card sits idle while the host is inside the
+runner (``bpv.runner``: gates, detectors, crops, nets, tracking): the
+span's share of the profiled slice's idle time, times the untraced
+window's idle time a call (``spans.idle_ms``)."""
+
+from gpubench import spans
+
+
+def read(run):
+    return spans.idle_ms(run, "bpv.runner")

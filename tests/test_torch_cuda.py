@@ -2,8 +2,9 @@
 (dense_s2_block), K4 (roi_sums and roi_samples), K5 (bottleneck_s1) and K6
 (bottleneck_chain) against their plain PyTorch versions on the card, the
 device feeder's pinned, asynchronous uploads against its CPU batches, the
-rotated crops (shear, both methods, and exact) card against CPU, and the
-hybrid rotation gate's one host sync a step.
+rotated crops (shear, both methods, and exact) card against CPU, the
+hybrid rotation gate's one host sync a step, and the gates' sync counters
+against the syncs CUDA sees.
 
 Every test here needs an NVIDIA card: it carries the ``cuda`` marker and
 skips elsewhere.  The file imports neither JAX nor the reference package
@@ -831,49 +832,81 @@ def test_cuda_rotated_crops_match_cpu(cuda_device, kind):
     assert float((got.cpu() - want).abs().max()) <= 1e-2
 
 
+def _gate_runner(device, mode, subbatch=8, lost=()):
+    """A runner of 2 streams at 96x128 on the K1 path, both landmarkers
+    tracking (one stream tilted), except the streams in ``lost``; its
+    start state and frames."""
+    from bp_from_video_tpu_torch.config import InferenceConfig, RunningMode
+    from bp_from_video_tpu_torch.models.runner import InferenceRunner
+    cfg = InferenceConfig(
+        face_landmarker=True, hand_landmarker=True,
+        running_mode=RunningMode.VIDEO, use_pallas=True,
+        fused_stem=True, fused_trunk=True, rotation_mode=mode,
+        detector_subbatch=subbatch,
+        face_detector_path=None, face_landmarker_path=None,
+        hand_landmarker_path=None, person_segmenter_path=None,
+        hand_lm_standin_path=None, palm_det_standin_path=None,
+        seg_standin_path=None)
+    run = InferenceRunner(cfg, 96, 128, device=device)
+    face = torch.tensor([[64.0, 48.0, 48.0, 48.0, 0.0],
+                         [64.0, 48.0, 48.0, 48.0, 0.5]], device=device)
+    ok = torch.ones(2, dtype=torch.bool, device=device)
+    ok[list(lost)] = False
+    st = run.init_state(2)._replace(
+        face_rect=face, face_tracking=ok,
+        hand_rects=face[:, None].expand(2, 2, 5).clone(),
+        hand_tracking=ok[:, None].expand(2, 2).clone())
+    frames = torch.randint(0, 256, (2, 3, 96, 128), dtype=torch.uint8,
+                           device=device)
+    return run, st, frames
+
+
+def _syncs(fn) -> int:
+    """Host syncs ``fn()`` makes, as CUDA sync debug mode reports them."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def test_cuda_hybrid_gate_syncs_once_a_step(cuda_device):
     """``hybrid`` on the K1 path with one tilted stream (the shear
     sub-batch) reads its gate in one host sync a step: one more than
     ``cover`` on the same step, and K1 launches once."""
-    import warnings
-
-    from bp_from_video_tpu_torch.config import InferenceConfig, RunningMode
-    from bp_from_video_tpu_torch.models.runner import InferenceRunner
-
     def syncs(mode):
-        cfg = InferenceConfig(
-            face_landmarker=True, hand_landmarker=True,
-            running_mode=RunningMode.VIDEO, use_pallas=True,
-            fused_stem=True, fused_trunk=True, rotation_mode=mode,
-            face_detector_path=None, face_landmarker_path=None,
-            hand_landmarker_path=None, person_segmenter_path=None,
-            hand_lm_standin_path=None, palm_det_standin_path=None,
-            seg_standin_path=None)
-        run = InferenceRunner(cfg, 96, 128, device=cuda_device)
-        face = torch.tensor([[64.0, 48.0, 48.0, 48.0, 0.0],
-                             [64.0, 48.0, 48.0, 48.0, 0.5]],
-                            device=cuda_device)
-        st = run.init_state(2)._replace(
-            face_rect=face, face_tracking=torch.ones(
-                2, dtype=torch.bool, device=cuda_device),
-            hand_rects=face[:, None].expand(2, 2, 5).clone(),
-            hand_tracking=torch.ones((2, 2), dtype=torch.bool,
-                                     device=cuda_device))
-        frames = torch.randint(0, 256, (2, 3, 96, 128), dtype=torch.uint8,
-                               device=cuda_device)
+        run, st, frames = _gate_runner(cuda_device, mode)
         run.predict_batch(run.params, st, frames)        # warm: builds
         torch.cuda.synchronize()
         n = twk.multi_crop.launches
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                run.predict_batch(run.params, st, frames)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        got = _syncs(lambda: run.predict_batch(run.params, st, frames))
         assert twk.multi_crop.launches == n + 1
-        return sum("synchroniz" in str(w.message) for w in caught)
+        return got
     assert syncs("hybrid") == syncs("cover") + 1
+
+
+@pytest.mark.parametrize("mode", ["cover", "hybrid"])
+@pytest.mark.parametrize("subbatch", [1, 0], ids=["subbatch1", "whole"])
+@pytest.mark.parametrize("lost", [(), (1,)], ids=["tracked", "one-lost"])
+def test_cuda_gate_counters_count_every_sync(cuda_device, mode, subbatch,
+                                             lost):
+    """Every host sync of a runner call is a gate's, and each is counted:
+    the ``sync.*`` counters advance by the syncs CUDA sees (two gates,
+    the hybrid gate's read besides), detectors running or not."""
+    from bp_from_video_tpu_torch.utils import profiling
+    run, st, frames = _gate_runner(cuda_device, mode, subbatch, lost)
+    run.predict_batch(run.params, st, frames)            # warm: builds
+    before = dict(profiling.profiler.counts)
+    got = _syncs(lambda: run.predict_batch(run.params, st, frames))
+    counted = sum(v - before.get(k, 0)
+                  for k, v in profiling.profiler.counts.items()
+                  if k.startswith("sync."))
+    assert got == counted == (3 if mode == "hybrid" else 2)
 
 
 # -- compiled detectors and segmenter, the packed path (card against CPU) ----

@@ -32,6 +32,7 @@ from bp_from_video_tpu_torch.runtime import recorder as rec
 from bp_from_video_tpu_torch.runtime.capture import FrameData, VideoReader
 from bp_from_video_tpu_torch.runtime.feeder import DeviceFeeder
 from bp_from_video_tpu_torch.utils.profiling import StageProfiler
+import test_torch_tracing as tracing
 from test_torch_streams import write_video
 
 
@@ -384,14 +385,20 @@ def test_stage_profiler_report_matches_reference():
 
 def test_stage_profiler_trace_writes_chrome_trace(tmp_path):
     """``start_trace``/``stop_trace`` wrap a region in a ``torch.profiler``
-    trace and write it as a Chrome trace holding the region's operators."""
+    trace and write it as a Chrome trace holding the region's operators
+    and, around one CPU engine step, the port's ``bpv.step`` span."""
+    engine = tracing.tiny_engine(use_pallas=False)
+    state = tracing.tracked_state(engine)
     prof = StageProfiler()
     prof.start_trace(str(tmp_path / "trace"))
     torch.mm(torch.ones(8, 8), torch.ones(8, 8))
+    tracing.call(engine, state, False)
     prof.stop_trace()
     with open(tmp_path / "trace" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
+    assert any(e.get("name") == "bpv.step"
+               and e.get("cat") == "user_annotation" for e in events)
     assert prof._trace is None
 
 
