@@ -13,8 +13,10 @@ on their last axis (the ROI ring on its second-to-last, before the 6-tuple).
 Each call is one ``bpv.step`` span with two halves under it: ``bpv.runner``
 (``InferenceRunner.predict_batch``, and the lagged step's tiling of the
 track state it takes) and ``bpv.signal`` (``bpv.roi``, ``bpv.sample``,
-``bpv.push``, ``bpv.dsp.<method>``, ``bpv.spectrum``, ``bpv.correlate``,
-``bpv.outputs``); each call counts ``steps`` (``utils/profiling``).
+``bpv.push``, then the analysis: ``bpv.dsp.<method>``, ``bpv.spectrum``,
+``bpv.correlate`` and ``bpv.outputs`` on an eager call, one ``bpv.analyze``
+on a call replayed as a CUDA graph, ``runtime/signal_graph.py``); each call
+counts ``steps`` (``utils/profiling``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from bp_from_video_tpu_torch.models.runner import (InferenceRunner,
 from bp_from_video_tpu_torch.ops import chain, correlate, spectrum
 from bp_from_video_tpu_torch.ops import roi as roi_ops
 from bp_from_video_tpu_torch.ops import signal as sig
+from bp_from_video_tpu_torch.runtime.signal_graph import SignalGraphs
 from bp_from_video_tpu_torch.utils.profiling import count, span
 
 Tensor = torch.Tensor
@@ -115,6 +118,7 @@ class Engine:
         self.params = self.runner.params
         self._pairs = list(itertools.combinations(
             range(config.signal.num_signals), 2))
+        self._analysis = SignalGraphs(self._analyze)
 
     # -- state ----------------------------------------------------------------
 
@@ -192,9 +196,21 @@ class Engine:
                        models: ModelResults, timestamps: Tensor,
                        fresh: Tensor) -> tuple[SignalState, StepOutputs]:
         """DSP chain, spectra, correlation, peak rings, HUD statistics and
-        plot ranges on the already-pushed rings."""
+        plot ranges on the already-pushed rings.  On a CUDA device the
+        analysis is replayed as one CUDA graph a call
+        (``runtime/signal_graph.py``); ``rois``, ``models``, the ROI rings
+        and the raw rings pass through as they came."""
+        got = self._analysis(st.raw_x, st.raw_y, st.bpm_x, st.bpm_y,
+                             st.ptt_x, st.ptt_y, timestamps, fresh)
+        new = SignalState(st.roi_x, st.roi_y, st.raw_x, st.raw_y, *got[:4])
+        return new, StepOutputs(models, rois, st.raw_x, st.raw_y, *got[4:])
+
+    def _analyze(self, raw_x: Tensor, raw_y: Tensor, bpm_x: Tensor,
+                 bpm_y: Tensor, ptt_x: Tensor, ptt_y: Tensor,
+                 timestamps: Tensor, fresh: Tensor) -> tuple[Tensor, ...]:
+        """The eager analysis -> (bpm_x, bpm_y, ptt_x, ptt_y) rings, then
+        :class:`StepOutputs` from ``proc_x`` to ``corr_range``."""
         cfg = self.config.signal
-        raw_x, raw_y = st.raw_x, st.raw_y
         s = raw_x.shape[0]
         x_b = raw_x[:, None, :].expand_as(raw_y)
         proc_x, proc_y = chain.process_signal(cfg, x_b, raw_y)
@@ -219,29 +235,25 @@ class Engine:
             # The peak window is the spectrum's auto data range (the
             # reference's effective behaviour, see ops/signal.peak_auto).
             bpm_now = sig.peak_auto(spec_x, spec_y)[0] * 60.0      # [S, ns]
-            bpm_x = sig.push_if(fresh, st.bpm_x, timestamps)
-            bpm_y = sig.push_if(fresh, st.bpm_y, bpm_now)
+            new_bpm_x = sig.push_if(fresh, bpm_x, timestamps)
+            new_bpm_y = sig.push_if(fresh, bpm_y, bpm_now)
             if self._pairs:
                 ptt_now = sig.peak_auto(corr_x, corr_y)[0] * 1000.0  # [S, P]
             else:
                 ptt_now = torch.full((s, p_cnt), _NAN, device=raw_x.device)
-            ptt_x = sig.push_if(fresh, st.ptt_x, timestamps)
-            ptt_y = sig.push_if(fresh, st.ptt_y, ptt_now)
+            new_ptt_x = sig.push_if(fresh, ptt_x, timestamps)
+            new_ptt_y = sig.push_if(fresh, ptt_y, ptt_now)
 
-            bpm_mean = sig.masked_mean(bpm_y, as_int=True)
-            ptt_mean = sig.masked_mean(ptt_y, as_int=True)
-            mean_fs = sig.mean_fs(bpm_x)
+            bpm_mean = sig.masked_mean(new_bpm_y, as_int=True)
+            ptt_mean = sig.masked_mean(new_ptt_y, as_int=True)
+            mean_fs = sig.mean_fs(new_bpm_x)
             curr_fs = 1.0 / (raw_x[:, -1] - raw_x[:, -2])
-
-            new = SignalState(st.roi_x, st.roi_y, raw_x, raw_y,
-                              bpm_x, bpm_y, ptt_x, ptt_y)
-            out = StepOutputs(models, rois, raw_x, raw_y, proc_x, proc_y,
-                              spec_x, spec_y, corr_x, corr_y, bpm_mean,
-                              ptt_mean, curr_fs, mean_fs,
-                              _group_range(proc_x, proc_y),
-                              _group_range(spec_x, spec_y),
-                              _group_range(corr_x, corr_y))
-            return new, out
+            return (new_bpm_x, new_bpm_y, new_ptt_x, new_ptt_y,
+                    proc_x, proc_y, spec_x, spec_y, corr_x, corr_y,
+                    bpm_mean, ptt_mean, curr_fs, mean_fs,
+                    _group_range(proc_x, proc_y),
+                    _group_range(spec_x, spec_y),
+                    _group_range(corr_x, corr_y))
 
     def batch_step(self, params, state: EngineState, frames_rgb: Tensor,
                    timestamps: Tensor) -> tuple[EngineState, StepOutputs]:

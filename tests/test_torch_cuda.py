@@ -3,8 +3,9 @@
 (bottleneck_chain) against their plain PyTorch versions on the card, the
 device feeder's pinned, asynchronous uploads against its CPU batches, the
 rotated crops (shear, both methods, and exact) card against CPU, the
-hybrid rotation gate's one host sync a step, and the gates' sync counters
-against the syncs CUDA sees.
+hybrid rotation gate's one host sync a step, the gates' sync counters
+against the syncs CUDA sees, and the signal half's analysis replayed as a
+CUDA graph against the eager analysis.
 
 Every test here needs an NVIDIA card: it carries the ``cuda`` marker and
 skips elsewhere.  The file imports neither JAX nor the reference package
@@ -12,6 +13,8 @@ skips elsewhere.  The file imports neither JAX nor the reference package
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -23,6 +26,7 @@ from bp_from_video_tpu_torch.kernels import bottleneck as tbn
 from bp_from_video_tpu_torch.kernels import roi as trk
 from bp_from_video_tpu_torch.kernels import stem as tsk
 from bp_from_video_tpu_torch.kernels import warp as twk
+from bp_from_video_tpu_torch.models.runner import map_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -997,3 +1001,200 @@ def test_cuda_packed_path_matches_cpu(cuda_device, mesh):
     d = (a.seg_conf.cpu() - b.seg_conf).abs()
     assert float((d > 1e-4).float().mean()) <= 1e-3
     assert float(d.max()) <= 2.0 ** -8
+
+
+# -- the signal half's analysis replayed as a CUDA graph ----------------------
+
+
+def _flagship_engine(device, s=64):
+    """The flagship engine (stand-in nets) of ``s`` streams, every stream
+    tracking a face and two hands from the start, with NaN rings; its
+    state and a looped clip of 24 pulsing 480x640 frames."""
+    from bp_from_video_tpu_torch.config import flagship_config
+    from bp_from_video_tpu_torch.runtime.engine import Engine
+    eng = Engine(flagship_config(s), device=device)
+    st = eng.init_state(s)
+    k = 480 / 96.0
+    on = torch.ones(s, dtype=torch.bool, device=device)
+    face = torch.tensor([64 * k, 40 * k, 56 * k, 56 * k, 0.0], device=device)
+    hands = torch.tensor([[30 * k, 72 * k, 40 * k, 40 * k, 0.0],
+                          [98 * k, 72 * k, 40 * k, 40 * k, 0.0]],
+                         device=device)
+    st = st._replace(track=st.track._replace(
+        face_rect=face.expand(s, 5).clone(), face_tracking=on,
+        hand_rects=hands.expand(s, 2, 5).clone(),
+        hand_tracking=on[:, None].expand(s, 2).clone()))
+    gen = torch.Generator(device=device).manual_seed(5)
+    base = torch.randint(60, 180, (s, 3, 60, 80), generator=gen,
+                         device=device).float()
+    base = base.repeat_interleave(8, 2).repeat_interleave(8, 3)
+    clip = []
+    for i in range(24):
+        f = base.clone()
+        f[:, 1] += 6.0 * math.sin(2 * math.pi * 1.2 * i / 30.0)
+        clip.append(torch.clamp(f.round(), 0, 255).to(torch.uint8))
+    return eng, st, torch.stack(clip)
+
+
+def _call_timestamps(s, call, device, f=1):
+    """[f, S] timestamps of call ``call``: 30 fps, except stream 3 stale
+    on odd calls (its last frame's timestamp the ring's tail: not fresh)
+    and stream 7's last frame NaN on every third call."""
+    n = torch.arange(call * f, call * f + f, dtype=torch.float32,
+                     device=device)
+    ts = ((n + 1) / 30.0)[:, None].expand(f, s).clone()
+    if call % 2 == 1:
+        ts[:, 3] = call * f / 30.0
+    if call % 3 == 2:
+        ts[-1, 7] = float("nan")
+    return ts
+
+
+def _same_bits(a, b):
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def _analysis_args(st, ts, fresh):
+    return (st.raw_x, st.raw_y, st.bpm_x, st.bpm_y, st.ptt_x, st.ptt_y, ts,
+            fresh)
+
+
+def _checked_analysis(eng):
+    """Wraps ``eng.signal_analyze``: each call also runs the eager
+    analysis on the same inputs first and records whether every output
+    is bit-equal; returns that record."""
+    real, record = eng.signal_analyze, []
+
+    def wrapped(st, rois, models, ts, fresh):
+        want = eng._analyze(*_analysis_args(st, ts, fresh))
+        new, out = real(st, rois, models, ts, fresh)
+        got = tuple(new[4:]) + tuple(out[4:])
+        record.append([_same_bits(g, w) for g, w in zip(got, want)])
+        return new, out
+    eng.signal_analyze = wrapped
+    return record
+
+
+def _graph_counts():
+    from bp_from_video_tpu_torch.utils import profiling
+    c = profiling.profiler.counts
+    return (c.get("signal_graph.captures", 0),
+            c.get("signal_graph.replays", 0))
+
+
+def test_cuda_signal_graph_replays_bit_equal_over_batch_steps(cuda_device):
+    """Ten ``batch_step``s of the 64-stream flagship from NaN rings, with
+    stale and NaN timestamps: the first call eager, the second captures,
+    every replay bit-equal to the eager analysis on the same inputs."""
+    eng, state, clip = _flagship_engine(cuda_device)
+    record = _checked_analysis(eng)
+    c0, r0 = _graph_counts()
+    for call in range(10):
+        ts = _call_timestamps(64, call, cuda_device)[0]
+        state, out = eng.batch_step(eng.params, state, clip[call], ts)
+    c1, r1 = _graph_counts()
+    assert (c1 - c0, r1 - r0) == (1, 9)
+    assert all(all(r) for r in record), record
+    assert torch.isfinite(out.proc_y).any() and torch.isfinite(out.bpm).any()
+
+
+def test_cuda_signal_graph_replays_bit_equal_over_lagged_steps(cuda_device):
+    """The same over four ``batch_step_lagged`` calls of F = 4."""
+    eng, state, clip = _flagship_engine(cuda_device)
+    record = _checked_analysis(eng)
+    c0, r0 = _graph_counts()
+    for call in range(4):
+        ts = _call_timestamps(64, call, cuda_device, f=4)
+        state, out = eng.batch_step_lagged(eng.params, state,
+                                           clip[4 * call:4 * call + 4], ts)
+    c1, r1 = _graph_counts()
+    assert (c1 - c0, r1 - r0) == (1, 3)
+    assert all(all(r) for r in record), record
+
+
+def _pulse_rings(eng, s, call, device):
+    """A signal state whose raw rings hold a 1.2 Hz pulse plus noise up
+    to ``call``, its peak rings NaN, and its analysis's timestamps and
+    fresh mask (stream 1 stale)."""
+    st = eng.init_signal_state(s)
+    n = st.raw_x.shape[-1]
+    t = (torch.arange(n, dtype=torch.float32, device=device) + call) / 30.0
+    gen = torch.Generator(device=device).manual_seed(call)
+    raw_y = (torch.sin(2 * math.pi * 1.2 * t) * 3.0
+             + torch.randn((s,) + st.raw_y.shape[1:], generator=gen,
+                           device=device))
+    st = st._replace(raw_x=t.expand(s, n).contiguous(), raw_y=raw_y)
+    fresh = torch.ones(s, dtype=torch.bool, device=device)
+    fresh[1] = False
+    return st, st.raw_x[:, -1].clone(), fresh
+
+
+def test_cuda_signal_graph_single_stream_step_has_its_own(cuda_device):
+    """``Engine.step`` (S = 1) captures a graph of its own beside the
+    64-stream one, and its replays are bit-equal too."""
+    eng, state, clip = _flagship_engine(cuda_device)
+    for call in range(2):
+        st, ts, fresh = _pulse_rings(eng, 64, call, cuda_device)
+        eng.signal_analyze(st, None, None, ts, fresh)
+    record = _checked_analysis(eng)
+    one = map_leaves(lambda x: x[0], eng.init_state(1))
+    one = one._replace(track=map_leaves(lambda x: x[0], state.track))
+    c0, _ = _graph_counts()
+    for call in range(4):
+        ts = torch.tensor((call + 1) / 30.0, device=cuda_device)
+        one, out = eng.step(eng.params, one, clip[call, 0], ts)
+    assert _graph_counts()[0] - c0 == 1
+    assert len(eng._analysis.graphs) == 2
+    assert all(all(r) for r in record), record
+
+
+def test_cuda_signal_graph_keeps_each_calls_outputs(cuda_device):
+    """Call t's state and outputs are unchanged after call t + 1 replays:
+    each call's outputs own their storage."""
+    eng, _, _ = _flagship_engine(cuda_device, s=8)
+    kept = []
+    for call in range(5):
+        st, ts, fresh = _pulse_rings(eng, 8, call, cuda_device)
+        new, out = eng.signal_analyze(st, None, None, ts, fresh)
+        fields = list(new) + list(out[2:])
+        kept.append((fields, [f.clone() for f in fields]))
+    for fields, copies in kept:
+        assert all(_same_bits(f, c) for f, c in zip(fields, copies))
+    a = {f.untyped_storage().data_ptr() for f in kept[-2][0][4:]}
+    b = {f.untyped_storage().data_ptr() for f in kept[-1][0][4:]}
+    assert a.isdisjoint(b)
+
+
+def test_cuda_signal_graph_stays_eager_under_autograd(cuda_device):
+    """With grad enabled and an input that requires grad, every call runs
+    eagerly: nothing is captured."""
+    eng, _, _ = _flagship_engine(cuda_device, s=8)
+    c0, r0 = _graph_counts()
+    with torch.enable_grad():
+        for call in range(3):
+            st, ts, fresh = _pulse_rings(eng, 8, call, cuda_device)
+            st = st._replace(raw_y=st.raw_y.requires_grad_())
+            new, out = eng.signal_analyze(st, None, None, ts, fresh)
+    assert _graph_counts() == (c0, r0)
+    assert eng._analysis.graphs == {}
+
+
+def test_cuda_signal_graph_recaptures_when_tf32_changes(cuda_device):
+    """A change of ``allow_tf32`` between calls is a new key: a new
+    capture (after one eager call), never the old graph; each graph's
+    replays are bit-equal to the eager analysis under its setting."""
+    eng, _, _ = _flagship_engine(cuda_device, s=8)
+    record = _checked_analysis(eng)
+    c0, _ = _graph_counts()
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            for call in range(3):
+                st, ts, fresh = _pulse_rings(eng, 8, call, cuda_device)
+                eng.signal_analyze(st, None, None, ts, fresh)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert _graph_counts()[0] - c0 == 2
+    assert len(eng._analysis.graphs) == 2
+    assert all(all(r) for r in record), record
