@@ -2,4 +2,6 @@
 (``python3 -m gpubench``; see ``run.py``).  Configurations, traffic mixes
 and per-layer metrics are files of their own under ``configs/``,
 ``traffic/`` and ``metrics/``, found by the names in ``BENCHMARK.json``;
-``ref/`` is the frozen plain reference that decides ``correct``."""
+each configuration names its system under ``systems/``, which builds,
+drives, judges and counts it; ``ref/`` is the frozen plain reference that
+decides ``correct`` for the flagship."""

@@ -7,8 +7,10 @@ For each seed: a run of the cell with a short window and the port's
 numbers (the lower readings).  For the seeds also in ``--control-seeds``:
 the control's numbers on the same checked calls and on its own run from
 the start (the upper readings: the reference in the port's place a step
-below the stated precisions, ``system.Control``), and in a lagged cell the
-port's with frame F - 1's samples pushed for every frame (``fault``).
+below the stated precisions, the system's ``control``), and the port's
+with the fault its system plants, where it has one (``fault``; the
+flagship's: in a lagged cell, frame F - 1's samples pushed for every
+frame).
 Prints one JSON line per seed, then the largest lower and the smallest
 upper reading of each number and whether the control comes out not
 correct under the cell's limits.  The benchmark's own runs never run the

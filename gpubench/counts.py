@@ -7,10 +7,11 @@ rates): 3.35 TB/s HBM, 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
 f32 outside them (``chip_smoke.py``'s ``bound_ms`` constants).
 
 A kernel launch is listed in the configuration file by its shape per crop
-of one net; the batch is the cell's crops of that net a call.  Operations
-are those the layer needs (a depthwise 3x3 then a pointwise conv counts as
-such, not as the dense conv the kernel composes them into); bytes count
-each input and weight byte read once and each output byte written once.
+of one net; the batch is the cell's crops of that net a call (the
+system's ``batch_of``).  Operations are those the layer needs (a depthwise
+3x3 then a pointwise conv counts as such, not as the dense conv the kernel
+composes them into); bytes count each input and weight byte read once and
+each output byte written once.
 """
 
 from __future__ import annotations
@@ -75,17 +76,14 @@ KERNELS = {"dense_s2_block": dense_s2_block,
            "bottleneck_chain": bottleneck_chain}
 
 
-def kernel_bound_s(launches: list[dict], streams: int, frames_per_call: int,
-                   max_hands: int) -> float:
+def kernel_bound_s(fn, launches: list[dict], batch) -> float:
     """Sum of the least times of one call's launches of one kernel, as
-    listed (``{"net", "conv"/"units", ...}`` per launch)."""
+    listed (``{"net", **shape}`` per launch): ``fn(b, **shape)`` gives a
+    launch's (operations, bytes), ``batch(net)`` its batch ``b``."""
     total = 0.0
-    for spec in launches:
-        spec = dict(spec)
-        b = crops_per_call(spec.pop("net"), streams, frames_per_call,
-                           max_hands)
-        kind = spec.pop("kernel")
-        flops, nbytes = KERNELS[kind](b, **spec)
+    for launch in launches:
+        shape = dict(launch)
+        flops, nbytes = fn(batch(shape.pop("net")), **shape)
         total += bound_s(nbytes, flops)
     return total
 

@@ -3,15 +3,17 @@
     python3 -m gpubench --workload CELL --seed N --seconds S --trace 0|1
 
 Reads ``BENCHMARK.json`` in the working directory, finds the cell, its
-configuration file (the entry's ``file``) and its traffic mix
-(``gpubench/traffic/<traffic>.json``), builds the port and its inputs
-from the seed on the card, warms up every shape the mix uses, then calls the engine
-back to back for ``--seconds`` (``window``).  With ``--trace 0`` the last
-line of standard output holds the cell's end-to-end metrics; with
-``--trace 1`` the run then profiles a fixed slice of calls and reports the
-per-layer metrics, each read by ``metrics/<name>.py``.  Either way the
-reference then judges the calls the window kept and runs the first calls
-of the run by itself (``check``), and the numbers it compared go to
+configuration file (the entry's ``file``), the system that file names
+(``gpubench/systems/<system>``: what is built, driven, judged and counted)
+and its traffic mix (``gpubench/traffic/<traffic>.json``), builds the port
+and its inputs from the seed on the card, warms up every shape the mix
+uses, then calls the port back to back for ``--seconds`` (``window``).
+With ``--trace 0`` the last line of standard output holds the cell's
+end-to-end metrics; with ``--trace 1`` the run then profiles a fixed slice
+of calls and reports the per-layer metrics, each read by
+``metrics/<name>.py``.  Either way the reference then judges the calls
+the window kept and runs the first calls of the run by itself (the
+system's ``judge`` and ``judge_own``), and the numbers it compared go to
 standard error, each beside its limit, and into the result line under
 ``checks``.
 
@@ -68,9 +70,11 @@ class Cell:
     traffic: object       # traffic.Traffic
     end_to_end: list
     per_layer: list
+    system: object        # the module under gpubench.systems the file names
 
 
 def load_cell(root: str, name: str, overrides: dict | None = None) -> Cell:
+    import gpubench.systems as systems
     from gpubench import traffic as traffic_mod
     with open(os.path.join(root, "BENCHMARK.json")) as f:
         bench = json.load(f)
@@ -87,21 +91,20 @@ def load_cell(root: str, name: str, overrides: dict | None = None) -> Cell:
     spec = dict(spec, engine=dict(spec["engine"],
                                   **overrides.get("engine", {})))
     tdict.update(overrides.get("traffic", {}))
-    t = traffic_mod.Traffic.from_dict(wl["traffic"], tdict)
+    system = systems.load(spec)
+    t = traffic_mod.Traffic.from_dict(wl["traffic"], tdict,
+                                      system.TRAFFIC_KEYS)
 
     def mine(m):
         return name in m.get("workloads", [name])
     return Cell(name, wl, spec, t,
                 [m for m in bench["end_to_end"] if mine(m)],
-                [m for m in bench["per_layer"] if mine(m)])
+                [m for m in bench["per_layer"] if mine(m)], system)
 
 
 def numbers_for(cell: Cell) -> dict:
     """The cell's compared numbers and their limits."""
-    lim = dict(cell.spec["limits"])
-    if cell.traffic.frames_per_call == 1:
-        lim.pop("frame_sample_gap", None)
-    return lim
+    return cell.system.limits(cell.spec, cell.traffic)
 
 
 # -- card facts -----------------------------------------------------------------
@@ -115,16 +118,6 @@ def smi(query: str) -> str:
         return r.stdout.strip().splitlines()[0] if r.stdout.strip() else ""
     except (OSError, subprocess.SubprocessError):
         return ""
-
-
-def kernel_counts() -> dict:
-    from bp_from_video_tpu_torch.kernels import block, bottleneck, roi, stem, warp
-    fns = {"multi_crop": warp.multi_crop, "stem_packed": stem.stem_packed,
-           "dense_s2_block": block.dense_s2_block,
-           "roi_samples": roi.roi_samples, "roi_sums": roi.roi_sums,
-           "bottleneck_s1": bottleneck.bottleneck_s1,
-           "bottleneck_chain": bottleneck.bottleneck_chain}
-    return {k: getattr(fn, "launches", 0) for k, fn in fns.items()}
 
 
 # -- one run ------------------------------------------------------------------
@@ -149,46 +142,43 @@ def execute(root: str, name: str, seed: int, seconds: float, trace: bool,
     the logs need (``control``: also the control's readings)."""
     import torch
 
-    from gpubench import system
     cell = load_cell(root, name, overrides)
     dev = torch.device(device)
     workdir = os.path.join(root, ".gpubench")
     os.makedirs(workdir, exist_ok=True)
     a = time.perf_counter()
-    inputs = system.make_inputs(cell.spec, cell.traffic.scene, seed,
-                                 workdir)
+    inputs = cell.system.make_inputs(cell.spec, cell.traffic, seed, workdir)
     MARKS["inputs from the seed"] = time.perf_counter() - a
     try:
         return _execute(cell, seed, seconds, trace, dev, inputs, control,
                         workdir)
     finally:
-        if os.path.exists(inputs.standin_path):
-            os.remove(inputs.standin_path)
+        inputs.close()
 
 
 def _execute(cell, seed, seconds, trace, dev, inputs, control, workdir):
     import torch
 
-    from gpubench import check as check_mod
-    from gpubench import system, trace as trace_mod
+    from gpubench import check, trace as trace_mod
     from gpubench import traffic as traffic_mod
     from gpubench import window as window_mod
-    t = cell.traffic
+    sysm, t = cell.system, cell.traffic
+    e = cell.spec["engine"]
+    s, h, w = e["streams"], e["height"], e["width"]
     cuda = dev.type == "cuda"
     phases = dict(MARKS, **{"process start to build": process_age_s()})
     a = time.perf_counter()
-    ms, cfg = system.build_port(cell.spec, inputs, dev)
+    port, cfg = sysm.build_port(cell.spec, inputs, dev)
     phases["port build"] = time.perf_counter() - a
-    s, h, w = cfg.num_streams, cfg.frame_height, cfg.frame_width
     a = time.perf_counter()
     clip = traffic_mod.pulse_clip(t, s, h, w, seed, dev)
     if cuda:
         torch.cuda.synchronize()
     phases["clip"] = time.perf_counter() - a
-    drv = window_mod.Driver(ms, t, clip, window_mod.timestamp_table(t, s, dev),
+    drv = window_mod.Driver(sysm, port, t, clip,
+                            window_mod.timestamp_table(t, s, dev),
                             own_call=t.own_calls - 1)
-    tracked = traffic_mod.tracked_mask(t, s, dev)
-    state0 = traffic_mod.tracked_state(ms.init_states(), h, w, tracked)
+    state0 = sysm.start_state(port, cfg, t, dev)
     state = state0
     # Warm-up: the same calls the window makes (every shape it uses),
     # holding as many calls' results as the check will hold, so that the
@@ -212,12 +202,12 @@ def _execute(cell, seed, seconds, trace, dev, inputs, control, workdir):
     rate = 1.0 / max(sorted(tw)[len(tw) // 2], 1e-6)
     check_at = window_mod.check_calls(seed, rate * seconds * 0.9,
                                       t.check_calls)
-    k0 = kernel_counts()
+    k0 = sysm.launch_counts()
     clocks_before = smi("clocks.sm,clocks.mem,power.draw,temperature.gpu")
     res = window_mod.run_window(drv, state, t.warmup_calls, seconds,
                                 check_at)
     clocks_after = smi("clocks.sm,clocks.mem,power.draw,temperature.gpu")
-    k1 = kernel_counts()
+    k1 = sysm.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     done = res.calls - res.failed_calls
     per_call = {k: (k1[k] - k0[k]) / max(done, 1) for k in k1}
@@ -225,10 +215,8 @@ def _execute(cell, seed, seconds, trace, dev, inputs, control, workdir):
                phases=phases, warm_calls_s=tw,
                launches_per_call=per_call, clocks=(clocks_before,
                                                     clocks_after),
-               tracked_end=(int(res.state.track.face_tracking.sum()),
-                            int(res.state.track.hand_tracking.sum())),
-               tracked_start=(int(state0.track.face_tracking.sum()),
-                              int(state0.track.hand_tracking.sum())))
+               tracked_end=sysm.tracked(res.state),
+               tracked_start=sysm.tracked(state0))
     run = Run(cell, res)
     state, nxt = res.state, res.next_call
     # A window too short to reach the call the reference's own run ends
@@ -250,23 +238,23 @@ def _execute(cell, seed, seconds, trace, dev, inputs, control, workdir):
     # calls and the own run's end keep what they need.
     checked, own, inputs_of = res.checked, drv.own, drv.inputs
     init_port = state0
-    del ms, state, res.state
-    drv.ms = drv.params = None
+    del port, state, res.state
+    drv.port = None
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    ref = system.build_reference(cell.spec, inputs, dev)
+    ref = sysm.build_reference(cell.spec, inputs, dev)
     numbers = numbers_for(cell)
-    readings = [check_mod.judge(ref, c) for c in checked]
-    start_ref = traffic_mod.tracked_state(ref.init_state(s), h, w, tracked)
-    start_ok = _same_start(start_ref, init_port)
+    readings = [sysm.judge(ref, c) for c in checked]
+    start_ref = sysm.ref_start_state(ref, cfg, t, dev)
+    start_ok = sysm.same_start(start_ref, init_port)
 
     def ref_step(st, frames, ts):
-        return system.engine_step(ref, st, frames, ts)
-    own_ref = check_mod.own_run(ref_step, start_ref, inputs_of, t.own_calls)
-    readings.append(check_mod.judge_own(cfg, *own_ref, *own))
-    worst = check_mod.worst(readings)
-    ok, lines = check_mod.verdict(worst, numbers)
+        return sysm.ref_step(ref, st, frames, ts)
+    own_ref = check.own_run(ref_step, start_ref, inputs_of, t.own_calls)
+    readings.append(sysm.judge_own(cfg, *own_ref, *own))
+    worst = check.worst(readings)
+    ok, lines = check.verdict(worst, numbers)
     if not start_ok:
         ok = False
         lines.append("start_state differs from the reference's")
@@ -275,13 +263,11 @@ def _execute(cell, seed, seconds, trace, dev, inputs, control, workdir):
                check_s=time.perf_counter() - t_ref)
     if trace:
         from gpubench import counts
-        mf = cell.spec.get("mfu_crops", {})
-        crops = {k: s * t.frames_per_call * v for k, v in mf.items()}
-        run.flops_per_call = counts.net_flops(ref, crops)
+        run.flops_per_call = sysm.net_flops(ref, cell.spec, t, cfg)
         for kernel, launches in cell.spec.get("kernels", {}).items():
             run.kernel_bounds[kernel] = counts.kernel_bound_s(
-                [dict(l, kernel=kernel) for l in launches], s,
-                t.frames_per_call, cfg.inference.max_hands)
+                sysm.KERNELS[kernel], launches,
+                lambda net: sysm.batch_of(net, cfg, t))
         vals = {}
         for m in cell.per_layer:
             mod = importlib.import_module(f"gpubench.metrics.{m['name']}")
@@ -290,55 +276,35 @@ def _execute(cell, seed, seconds, trace, dev, inputs, control, workdir):
                 vals[m["name"]] = {"value": float(v), "unit": m["unit"]}
         out.update(per_layer=vals, trace=run.trace)
     if control:
-        out.update(_control_readings(cell, inputs, dev, ref, checked,
+        out.update(_control_readings(cell, cfg, inputs, dev, ref, checked,
                                      start_ref, inputs_of, own_ref))
     return out
 
 
-def _control_readings(cell, inputs, dev, ref, checked, start_ref, inputs_of,
-                      own_ref) -> dict:
+def _control_readings(cell, cfg, inputs, dev, ref, checked, start_ref,
+                      inputs_of, own_ref) -> dict:
     """The control's readings on the same checked calls and own run
-    (``control_worst``), and, in a lagged cell, the port's with frame
-    F - 1's samples pushed for every frame of each checked call
-    (``fault_worst``)."""
+    (``control_worst``), and those of the fault the system plants in the
+    port's checked calls, where it has one (``fault_worst``)."""
     import torch
 
-    from gpubench import check as check_mod
-    from gpubench import system
-    ctl = system.Control(cell.spec, inputs, dev)
+    from gpubench import check
+    sysm = cell.system
+    ctl = sysm.control(cell.spec, inputs, dev)
     ctl_readings = []
     for c in checked:
         with torch.no_grad():
             st1, o1 = ctl.step(c.state_in, c.frames, c.ts)
-        cc = check_mod.Checked(c.call, c.frames, c.ts, c.state_in, o1, st1)
-        ctl_readings.append(check_mod.judge(ref, cc))
-    own_ctl = check_mod.own_run(ctl.step, start_ref, inputs_of,
-                                cell.traffic.own_calls)
-    ctl_readings.append(check_mod.judge_own(ref.config, *own_ref, *own_ctl))
-    got = {"control_worst": check_mod.worst(ctl_readings)}
-    if cell.traffic.frames_per_call > 1:
-        f_n = cell.traffic.frames_per_call
-        faulty = []
-        for c in checked:
-            sig = c.state_out.signals
-            raw = sig.raw_y.clone()
-            raw[..., -f_n:] = raw[..., -1:]
-            st = c.state_out._replace(signals=sig._replace(raw_y=raw))
-            faulty.append(check_mod.judge(ref, check_mod.Checked(
-                c.call, c.frames, c.ts, c.state_in, c.out, st)))
-        got["fault_worst"] = check_mod.worst(faulty)
+        ctl_readings.append(sysm.judge(ref, dataclasses.replace(
+            c, out=o1, state_out=st1)))
+    own_ctl = check.own_run(ctl.step, start_ref, inputs_of,
+                            cell.traffic.own_calls)
+    ctl_readings.append(sysm.judge_own(cfg, *own_ref, *own_ctl))
+    got = {"control_worst": check.worst(ctl_readings)}
+    fault = sysm.faults(ref, checked, cell.traffic)
+    if fault is not None:
+        got["fault_worst"] = fault
     return got
-
-
-def _same_start(mine, init_port) -> bool:
-    """The port's starting state equals the reference's built alike."""
-    import torch
-    from gpubench.ref.models.runner import tree_leaves
-    a, b = tree_leaves(mine), tree_leaves(init_port)
-    return len(a) == len(b) and all(
-        x.shape == y.shape and bool(torch.equal(
-            torch.nan_to_num(x.double(), nan=-7.0),
-            torch.nan_to_num(y.double(), nan=-7.0))) for x, y in zip(a, b))
 
 
 # -- the command ----------------------------------------------------------------
@@ -391,6 +357,7 @@ def main(argv=None) -> int:
     os.environ.setdefault("TORCH_EXTENSIONS_DIR",
                           os.path.join(build, "torch_extensions"))
     os.environ.setdefault("USE_FLAX", "0")
+    a = time.perf_counter()
     try:
         guard.check("start")
         cell = load_cell(root, args.workload)
@@ -400,9 +367,9 @@ def main(argv=None) -> int:
     except (OSError, LookupError, KeyError, ValueError) as e:
         print(f"gpubench: {e}", file=sys.stderr)
         return 2
-    a = time.perf_counter()
+    MARKS["the cell, torch and the system's modules"] = (
+        time.perf_counter() - a)
     import torch
-    MARKS["import torch"] = time.perf_counter() - a
     torch.set_num_threads(1)
     need = int(cell.workload.get("chips", 1))
     if not torch.cuda.is_available() or torch.cuda.device_count() < need:
@@ -443,8 +410,8 @@ def main(argv=None) -> int:
             + "/".join(f"{v:.3f}" for v in q)
             + f"; slowest 8: {[round(v * 1e3, 3) for v in st[-8:]]}")
     log(f"[kernels] launches per call: {r['launches_per_call']}")
-    log(f"[track] tracked face/hand slots at the start {r['tracked_start']}"
-        f", at the end {r['tracked_end']}")
+    log(f"[track] tracked at the start {r['tracked_start']}, at the end "
+        f"{r['tracked_end']}")
     log(f"[check] calls {r['checked_calls']} and the reference's own run "
         f"of {cell.traffic.own_calls} calls in {r['check_s']:.2f} s")
     for k, v in r["worst"].items():

@@ -49,6 +49,11 @@ class Inputs:
     graphs: dict          # {runner key: Graph} (raw, numpy weights)
     standin_path: str     # the hand stand-in's npz
 
+    def close(self) -> None:
+        """Remove the stand-in's file."""
+        if os.path.exists(self.standin_path):
+            os.remove(self.standin_path)
+
 
 def make_inputs(spec: dict, scene: str, seed: int, workdir: str) -> Inputs:
     e = spec["engine"]

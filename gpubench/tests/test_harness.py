@@ -161,8 +161,12 @@ def test_guard_compares_whole_top_level_names():
 
 
 def test_reference_and_harness_import_no_jax_and_the_reference_no_port():
-    code = ("import sys; import gpubench.ref.runtime.engine, "
-            "gpubench.check, gpubench.nets, gpubench.precision; "
+    code = ("import importlib, pkgutil, sys; import gpubench.ref.runtime."
+            "engine, gpubench.check, gpubench.nets, gpubench.precision, "
+            "gpubench.systems as s; "
+            "[importlib.import_module(f'gpubench.systems.{m.name}') "
+            "for m in pkgutil.iter_modules(s.__path__)]; "
+            "assert 'gpubench.systems.flagship' in sys.modules; "
             "from gpubench import guard; "
             "print(guard.loaded(guard.FORBIDDEN + (guard.PORT,)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -6,8 +6,8 @@ activities) inside a ``gpubench.slice`` range, each call inside
 back and reduced to what the per-layer readers need: the device's busy
 intervals (kernels, copies, memsets) inside the slice, launches, device
 time by kernel name, device time launched from inside each harness range,
-and the idle gaps labelled by the innermost host operation running at
-their start.
+the idle gaps labelled by the innermost host operation running at
+their start, and the port's own spans (``spans.reduce``).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ class Trace:
     by_name: dict                        # device seconds by event name
     by_range: dict                       # device seconds launched in range
     idle_gaps: list                      # [(label, seconds)] by label
+    spans: object = None                 # spans.Spans of the port's spans
 
 
 def profile_calls(drv, state, first_call: int, n: int, path: str):
@@ -117,9 +118,11 @@ def reduce(events: list, calls: int) -> Trace:
             if s <= a < e and (best is None or e - s < best):
                 label, best = name, e - s
         gaps[label] += (b - a) / 1e6
+    from gpubench import spans
     return Trace(calls=calls, window_s=(t1 - t0) / 1e6, busy_s=busy / 1e6,
                  launches=len(dev), by_name=dict(by_name),
-                 by_range=dict(by_range), idle_gaps=gaps.most_common(10))
+                 by_range=dict(by_range), idle_gaps=gaps.most_common(10),
+                 spans=spans.reduce(events))
 
 
 def count_syncs(fn) -> int:

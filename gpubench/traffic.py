@@ -6,7 +6,8 @@ periods, played in a loop while timestamps keep rising by 1/30 s), the
 pulse, the share of streams tracked at the start, the frames a stream per
 engine call (1: ``batch_step``; F > 1: ``batch_step_lagged``), and the
 harness's counts (warm-up calls, checked calls, the calls the reference
-runs by itself from the start, profiled calls).
+runs by itself from the start, profiled calls), and the keys the cell's
+system declares (``TRAFFIC_KEYS``) in ``params``.
 
 ``pulse_clip`` and ``tracked_state`` are copies of the helpers of
 ``chip_smoke.py``, so that later changes there do not move the
@@ -38,14 +39,19 @@ class Traffic:
     own_calls: int          # calls the reference runs by itself from call 0
     profile_calls: int      # calls traced by the profiler (--trace 1)
     sync_calls: int         # calls counted in CUDA sync debug mode
+    params: dict = dataclasses.field(default_factory=dict)  # the system's
 
     @classmethod
-    def from_dict(cls, name: str, d: dict) -> "Traffic":
-        fields = {f.name for f in dataclasses.fields(cls)} - {"name"}
-        unknown = set(d) - fields - {"why"}
+    def from_dict(cls, name: str, d: dict, extra=()) -> "Traffic":
+        """The mix ``d``; ``extra`` names the keys the cell's system reads
+        (``TRAFFIC_KEYS``), kept in ``params``."""
+        fields = {f.name for f in dataclasses.fields(cls)} - {"name",
+                                                               "params"}
+        unknown = set(d) - fields - set(extra) - {"why"}
         if unknown:
             raise ValueError(f"traffic {name}: unknown keys {sorted(unknown)}")
-        t = cls(name=name, **{k: d[k] for k in fields})
+        t = cls(name=name, params={k: d[k] for k in extra},
+                **{k: d[k] for k in fields})
         period = FPS / t.pulse_hz
         if abs(t.clip_frames / period - round(t.clip_frames / period)) > 1e-9:
             raise ValueError(f"traffic {name}: {t.clip_frames} frames is not "

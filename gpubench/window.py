@@ -1,6 +1,6 @@
-"""The timed loop: a closed loop of engine calls, each timed on the host
-clock from the call to the numbers a user reads (BPM and PTT) on the
-host."""
+"""The timed loop: a closed loop of the cell's calls, each timed on the
+host clock from the call to the numbers a user reads on the host (the
+system's readback)."""
 
 from __future__ import annotations
 
@@ -11,29 +11,25 @@ import time
 import numpy as np
 import torch
 
+from gpubench import check
 from gpubench import traffic as traffic_mod
-from gpubench.check import Checked
 
 MAX_CALLS = 16384
 
 
 @dataclasses.dataclass
 class Driver:
-    """One engine call of a cell: the port's step (``MultiStreamEngine
-    .step``, or ``Engine.batch_step_lagged`` for F > 1), then the
-    readback.  The state and outputs of call ``own_call`` are kept
-    (``own``) for the reference's run of its own."""
+    """One timed call of a cell: the system's ``call`` (the port's step,
+    then the readback).  The state and outputs of call ``own_call`` are
+    kept (``own``) for the reference's run of its own."""
 
-    ms: object
+    system: object             # the cell's module under gpubench.systems
+    port: object
     traffic: traffic_mod.Traffic
     clip: torch.Tensor
     ts_table: torch.Tensor     # [MAX_CALLS, F, S] on the device
     own_call: int = -1
     own: tuple | None = None
-    params: object = None
-
-    def __post_init__(self):
-        self.params = self.ms.params
 
     def inputs(self, call: int):
         frames = traffic_mod.call_frames(self.traffic, self.clip, call)
@@ -43,13 +39,7 @@ class Driver:
     def call(self, state, call: int):
         """(new state, outputs, host readback)."""
         frames, ts = self.inputs(call)
-        if self.traffic.frames_per_call == 1:
-            state, out = self.ms.step(self.params, state, frames, ts)
-        else:
-            state, out = self.ms.engine.batch_step_lagged(self.params, state,
-                                                          frames, ts)
-        host = torch.cat([out.bpm.reshape(-1).float(),
-                          out.ptt.reshape(-1).float()]).cpu()
+        state, out, host = self.system.call(self.port, state, frames, ts)
         if call == self.own_call:
             self.own = (state, out)
         return state, out, host
@@ -70,7 +60,7 @@ class WindowResult:
     window_s: float
     calls: int
     failed_calls: int
-    checked: list[Checked]
+    checked: list[check.Checked]
     state: object
     next_call: int
 
@@ -111,9 +101,9 @@ def run_window(drv: Driver, state, first_call: int, seconds: float,
                         state, call)
 
 
-def _keep(drv: Driver, call, before, out, after) -> Checked:
+def _keep(drv: Driver, call, before, out, after) -> check.Checked:
     frames, ts = drv.inputs(call)
-    return Checked(call, frames, ts, before, out, after)
+    return check.Checked(call, frames, ts, before, out, after)
 
 
 def check_calls(seed: int, expected_calls: int, n: int) -> set[int]:
