@@ -28,7 +28,8 @@ from bp_from_video_tpu_torch import config as cfg_mod
 from bp_from_video_tpu_torch import resolve_device
 from bp_from_video_tpu_torch.config import (
     CaptureConfig, EngineConfig, RunningMode, SignalColorChannel,
-    SignalProcessingMethod, SignalSpectrumTransform, preset_configs)
+    SignalProcessingMethod, SignalSpectrumTransform, physformer_config,
+    preset_configs)
 
 ROI_PRESETS = {
     "cheek": cfg_mod.FACE_CHEEK_CONFIG,
@@ -47,8 +48,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--source", nargs="+", default=["0"],
                    help="webcam index or video path; several sources -> "
                         "multi-stream (default: webcam 0)")
-    p.add_argument("--preset", choices=sorted(preset_configs()),
-                   help="start from a named benchmark configuration")
+    p.add_argument("--preset", choices=sorted(preset_configs())
+                   + ["physformer"],
+                   help="start from a named benchmark configuration "
+                        "(physformer: the PhysFormer rPPG net on 160-frame "
+                        "clips of the face, config.physformer_config)")
     p.add_argument("--pipelined", action="store_true",
                    help="threaded capture pipeline with drop-oldest "
                         "hand-off (reference pbp.py mode)")
@@ -169,7 +173,10 @@ def _source(s: str):
 
 
 def config_from_args(args) -> tuple[EngineConfig, list[CaptureConfig]]:
-    cfg = preset_configs()[args.preset] if args.preset else EngineConfig()
+    if args.preset == "physformer":
+        cfg = physformer_config(1)
+    else:
+        cfg = preset_configs()[args.preset] if args.preset else EngineConfig()
 
     sig_kw = {}
     if args.rois:

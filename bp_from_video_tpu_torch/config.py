@@ -145,6 +145,55 @@ class SignalConfig:
         return math.comb(self.num_signals, 2)
 
 
+# --- rPPG net configuration ---------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PhysFormerConfig:
+    """PhysFormer (Yu et al., CVPR 2022, arXiv:2111.12082) as rPPG-Toolbox
+    (arXiv:2210.00716) runs it under ``PHYSFORMER``:
+    ``ViT_ST_ST_Compact3_TDC_gra_sharp`` over ``clip_frames``-frame chunks
+    of ``crop``-square face crops (``models/physformer.py``).
+
+    The engine keeps the last ``clip_frames`` crops a stream in a ring
+    (``runtime/engine.ClipState``) and runs the net on a stream once the
+    ring is full and ``hop`` crops have come in since it last ran
+    (``hop == clip_frames``: non-overlapping chunks)."""
+
+    dim: int = 96
+    ff_dim: int = 144
+    num_heads: int = 4
+    num_layers: int = 12
+    patch: int = 4            # temporal and spatial patch of the embedding
+    theta: float = 0.7        # CDC_T's temporal centre difference
+    gra_sharp: float = 2.0    # attention's temperature: softmax(QK^T / it)
+    clip_frames: int = 160
+    crop: int = 128
+    hop: int = 160
+
+    def __post_init__(self):
+        # The stem halves the crop three times; the head's two x2
+        # upsamples give back ``clip_frames`` samples only at patch 4.
+        if self.patch != 4:
+            raise ValueError(f"patch={self.patch}: the head restores "
+                             "clip_frames samples only at patch 4")
+        if self.clip_frames % self.patch or self.crop % (8 * self.patch):
+            raise ValueError(
+                f"clip_frames={self.clip_frames}, crop={self.crop}: need "
+                f"multiples of {self.patch} and {8 * self.patch}")
+        if self.dim % self.num_heads or self.dim % 4:
+            raise ValueError(f"dim={self.dim}: must divide by num_heads "
+                             f"({self.num_heads}) and 4")
+        if not 0 < self.hop <= self.clip_frames:
+            raise ValueError(f"hop={self.hop}: expected 1..clip_frames")
+
+    @property
+    def grid(self) -> int:
+        """Tokens along each spatial side: the crop after the stem's three
+        halvings and the patch embedding."""
+        return self.crop // (8 * self.patch)
+
+
 # --- Inference configuration -------------------------------------------------
 
 
@@ -422,6 +471,42 @@ def flagship_config(streams: int = 64, h: int = 480, w: int = 640
         inference=InferenceConfig(
             use_pallas=True, fuse_dw_pw=False, pack_s2d=0, fused_stem=True,
             fused_trunk=True, fused_bn_min_hw=96, seg_full_masks=True))
+
+
+@dataclasses.dataclass(frozen=True)
+class RppgEngineConfig(EngineConfig):
+    """An engine whose streams' one signal is the BVP of a learned rPPG net
+    (``rppg_net``) over a ring of face crops, in place of ROI samples
+    (``runtime/engine.py``).  A subclass, so that every other
+    configuration keeps the JAX package's fields one for one."""
+
+    rppg_net: PhysFormerConfig = PhysFormerConfig()
+
+
+def physformer_config(streams: int = 64, h: int = 480, w: int = 640,
+                      net: PhysFormerConfig = PhysFormerConfig()
+                      ) -> RppgEngineConfig:
+    """PhysFormer on the port's path: the face landmarker alone (the mesh
+    on the fused kernels, as in :func:`flagship_config`) keeps the face
+    rect; K1 crops it at ``net.crop`` into each stream's clip ring; the
+    net's BVP is the one signal, detrended, band-passed over 0.75-2.5 Hz
+    (rPPG-Toolbox's post-processing band; order 2, the even order nearest
+    its order-1 design, as the port's filter takes even orders only) and
+    read by an rFFT peak.  No ROI, no hand landmarker, no detector;
+    bf16."""
+    return RppgEngineConfig(
+        frame_height=h, frame_width=w, num_streams=streams,
+        compute_dtype="bfloat16", rppg_net=net,
+        signal=SignalConfig(
+            roi_configs=(), signal_max_samples=net.clip_frames,
+            processing_methods=(SignalProcessingMethod.DETREND_LINEAR,
+                                SignalProcessingMethod.FILTER_BUTTER),
+            spectrum_transform=SignalSpectrumTransform.DFT_RFFT,
+            butter_order=2, min_freq=0.75, max_freq=2.5),
+        inference=InferenceConfig(
+            hand_landmarker=False, use_pallas=True, fuse_dw_pw=False,
+            pack_s2d=0, fused_stem=True, fused_trunk=True,
+            fused_bn_min_hw=96))
 
 
 def preset_config(name: str, streams: int = 64, h: int = 480, w: int = 640

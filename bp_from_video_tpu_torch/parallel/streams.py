@@ -18,7 +18,9 @@ A step takes placed DTensors (``shard_state``, ``shard_frames``) or plain
 tensors that are this rank's rows already, and returns this rank's rows
 (state and outputs) as plain tensors, so steps chain with no wrapping;
 ``place_local`` views such rows as the global stream-split DTensors, and
-``gather`` reads them whole on every rank (a collective).
+``gather`` reads them whole on every rank (a collective).  An engine with
+an rPPG net carries its clip ring in the state (``RppgEngineState``), so
+the ring is initialised, placed and stepped as every other ring is.
 """
 
 from __future__ import annotations

@@ -17,21 +17,39 @@ track state it takes) and ``bpv.signal`` (``bpv.roi``, ``bpv.sample``,
 ``bpv.correlate`` and ``bpv.outputs`` on an eager call, one ``bpv.analyze``
 on a call replayed as a CUDA graph, ``runtime/signal_graph.py``); each call
 counts ``steps`` (``utils/profiling``).
+
+With an rPPG net (``config.RppgEngineConfig``, e.g. ``physformer_config``)
+the state is a :class:`RppgEngineState`: beside the rings of
+:class:`SignalState`, a :class:`ClipState` ring of each stream's last T
+face crops.  A call crops each of its frames at the face rect from before
+the call (K1 at the net's crop size) and pushes the crops (``bpv.clip``,
+counting ``clip.pushed``); the streams whose ring is full and has had
+``hop`` new crops are read to the host (``bpv.sync.clip_gate``,
+``sync.clip_gate``), their clips standardised and run through the net
+(``bpv.net.physformer``, counting ``clip.runs``); the net's BVP and the
+ring's timestamps become those streams' raw rings, and ``bpv.signal`` is
+the unchanged analysis with the BPM ring pushed where the net ran.  The
+lagged step then runs the landmark nets on the window's last frame only.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 from typing import NamedTuple
 
 import torch
 
 from bp_from_video_tpu_torch import resolve_device
 from bp_from_video_tpu_torch.config import EngineConfig, ModelType
+from bp_from_video_tpu_torch.kernels import warp as warp_kernel
+from bp_from_video_tpu_torch.models import physformer, warp
 from bp_from_video_tpu_torch.models.runner import (InferenceRunner,
                                                    ModelResults, TrackState,
+                                                   _pow2_ladder, _seed,
                                                    map_leaves,
                                                    skin_confidence)
+from bp_from_video_tpu_torch.ops.roi import is_planar_frames
 from bp_from_video_tpu_torch.ops import chain, correlate, spectrum
 from bp_from_video_tpu_torch.ops import roi as roi_ops
 from bp_from_video_tpu_torch.ops import signal as sig
@@ -40,6 +58,8 @@ from bp_from_video_tpu_torch.utils.profiling import count, span
 
 Tensor = torch.Tensor
 _NAN = float("nan")
+# Clips standardised at a time before the rPPG net (f32 scratch).
+_STANDARDISE_ROWS = 8
 
 
 class SignalState(NamedTuple):
@@ -55,9 +75,48 @@ class SignalState(NamedTuple):
     ptt_y: Tensor   # [S, P, Np]
 
 
+class ClipState(NamedTuple):
+    """Each stream's ring of its last T face crops for the rPPG net (leading
+    [S]), circular: slot ``(head + i) % T`` holds the i-th oldest crop.
+    Slot T of ``crops`` and ``ts`` takes the writes of crops that are not
+    pushed (a stale or missing timestamp), so a push is one scatter."""
+
+    crops: Tensor   # [S, T + 1, C, C, 3] compute dtype, the net's layout
+    ts: Tensor      # [S, T + 1] f32 seconds, NaN where no crop yet
+    head: Tensor    # int64 [S]: the oldest crop's slot, the next write's
+    new: Tensor     # int32 [S]: crops pushed since the net last ran
+
+    def ordered_ts(self) -> Tensor:
+        """[S, T] timestamps, oldest first."""
+        return torch.gather(self.ts, 1, _ring_slots(self.head, self.ts))
+
+    def ordered(self, rows: Tensor | None = None) -> Tensor:
+        """The crops oldest first, [S, T, C, C, 3] (of ``rows`` only when
+        given)."""
+        slots = _ring_slots(self.head, self.ts)
+        if rows is None:
+            rows = torch.arange(slots.shape[0], device=slots.device)
+        return self.crops[rows[:, None], slots[rows]]
+
+
+def _ring_slots(head: Tensor, ts: Tensor) -> Tensor:
+    """[S, T] slots of a clip ring, oldest first."""
+    t = ts.shape[1] - 1
+    return (head[:, None] + torch.arange(t, device=head.device)) % t
+
+
 class EngineState(NamedTuple):
     signals: SignalState
     track: TrackState
+
+
+class RppgEngineState(NamedTuple):
+    """The state of an engine with an rPPG net: :class:`EngineState`'s
+    fields and the clip ring."""
+
+    signals: SignalState
+    track: TrackState
+    clip: ClipState
 
 
 class StepOutputs(NamedTuple):
@@ -103,28 +162,53 @@ def _group_range(xs: Tensor, ys: Tensor) -> Tensor:
 class Engine:
     """Builds the runner for a static EngineConfig; ``device=None`` means
     ``"cuda"`` (raises without CUDA unless ``device="cpu"``).  ``graphs``
-    goes to the runner unchanged (already parsed landmark graphs)."""
+    goes to the runner unchanged (already parsed landmark graphs).
+
+    With an rPPG net configured (``config.rppg_net`` of a
+    ``config.RppgEngineConfig``) the engine also builds the net
+    (``self.rppg``, from ``rppg_params``: unfolded weights as
+    ``models/physformer.init_params`` lays them out, seeded when None); its
+    state is a :class:`RppgEngineState`, which adds the clip ring to
+    :class:`EngineState`'s fields, and the net's BVP is each stream's one
+    signal: no ROI may be configured."""
 
     def __init__(self, config: EngineConfig, asset_dir: str | None = None,
-                 device=None, graphs: dict | None = None):
+                 device=None, graphs: dict | None = None,
+                 rppg_params: dict | None = None):
         self.config = config
         self.device = resolve_device(device)
+        dtype = (torch.bfloat16 if config.compute_dtype == "bfloat16"
+                 else torch.float32)
         self.runner = InferenceRunner(
             config.inference, config.frame_height, config.frame_width,
-            asset_dir=asset_dir,
-            dtype=(torch.bfloat16 if config.compute_dtype == "bfloat16"
-                   else torch.float32),
-            device=self.device, graphs=graphs)
+            asset_dir=asset_dir, dtype=dtype, device=self.device,
+            graphs=graphs)
         self.params = self.runner.params
         self._pairs = list(itertools.combinations(
             range(config.signal.num_signals), 2))
         self._analysis = SignalGraphs(self._analyze)
+        self.rppg = None
+        net = getattr(config, "rppg_net", None)
+        if net is not None:
+            sc = config.signal
+            if sc.roi_configs or not config.inference.face_landmarker:
+                raise ValueError("an rPPG net takes the face landmarker's "
+                                 "rect and is the one signal: no ROI")
+            if sc.signal_max_samples != net.clip_frames:
+                raise ValueError(
+                    f"signal_max_samples={sc.signal_max_samples}: the "
+                    f"net's BVP fills the raw ring, {net.clip_frames}")
+            if rppg_params is None:
+                rppg_params = physformer.init_params(net, _seed("rppg"))
+            self.rppg = physformer.PhysFormer(net, rppg_params, dtype,
+                                              self.device)
 
     # -- state ----------------------------------------------------------------
 
     def init_signal_state(self, num_streams: int) -> SignalState:
         c = self.config.signal
-        ns, p = c.num_signals, max(c.num_pairs, 1)
+        ns = 1 if self.rppg is not None else c.num_signals
+        p = max(c.num_pairs, 1)
         nr, n, np_ = c.roi_max_samples, c.signal_max_samples, c.peak_max_samples
 
         def nan(*shape):
@@ -133,11 +217,25 @@ class Engine:
         return SignalState(nan(nr), nan(ns, nr, 6), nan(n), nan(ns, n),
                            nan(np_), nan(ns, np_), nan(np_), nan(p, np_))
 
-    def init_state(self, num_streams: int | None = None) -> EngineState:
+    def init_clip_state(self, num_streams: int) -> ClipState:
+        net, dev = self.config.rppg_net, self.device
+        t, c = net.clip_frames, net.crop
+        return ClipState(
+            crops=torch.zeros((num_streams, t + 1, c, c, 3),
+                              dtype=self.runner.dtype, device=dev),
+            ts=torch.full((num_streams, t + 1), _NAN, dtype=torch.float32,
+                          device=dev),
+            head=torch.zeros(num_streams, dtype=torch.int64, device=dev),
+            new=torch.zeros(num_streams, dtype=torch.int32, device=dev))
+
+    def init_state(self, num_streams: int | None = None
+                   ) -> EngineState | RppgEngineState:
         """Fresh state for ``num_streams`` (default: the config's)."""
         s = self.config.num_streams if num_streams is None else num_streams
-        return EngineState(self.init_signal_state(s),
-                           self.runner.init_state(s))
+        sig_st, track = self.init_signal_state(s), self.runner.init_state(s)
+        if self.rppg is None:
+            return EngineState(sig_st, track)
+        return RppgEngineState(sig_st, track, self.init_clip_state(s))
 
     # -- the step ---------------------------------------------------------------
 
@@ -264,6 +362,9 @@ class Engine:
             with span("bpv.runner"):
                 track, models = self.runner.predict_batch(
                     params, state.track, frames_rgb)
+            if self.rppg is not None:
+                return self._rppg_half(state, track, models,
+                                       frames_rgb[None], timestamps[None])
             with span("bpv.signal"):
                 signals, out = self.signal_step(state.signals, models,
                                                 frames_rgb, timestamps)
@@ -282,10 +383,22 @@ class Engine:
         the timestamp is fresh); the window analysis runs once, on the
         last frame.  The ROI sampling of all F frames is one K4 launch:
         each (stream, ROI) sum is computed alone, so it is bit-equal to F
-        launches of S streams."""
+        launches of S streams.
+
+        With an rPPG net (and so no ROI) no frame but the last feeds
+        anything the landmark nets give, so they run on the last frame
+        only; every frame of the window is cropped at the face rect from
+        before the window into the clip ring, one K1 launch for the F x S
+        crops (:meth:`_rppg_half`)."""
         with span("bpv.step"):
             count("steps")
             f_n, s_n = timestamps.shape
+            if self.rppg is not None:
+                with span("bpv.runner"):
+                    track, models = self.runner.predict_batch(
+                        params, state.track, frames_rgb[-1])
+                return self._rppg_half(state, track, models, frames_rgb,
+                                       timestamps)
             flat = frames_rgb.reshape((f_n * s_n,) + frames_rgb.shape[2:])
             with span("bpv.runner"):
                 tiled = map_leaves(
@@ -326,6 +439,127 @@ class Engine:
             sig_st, rois_f[-1], map_leaves(lambda a: a[-1], models_f),
             ts_last, fresh_last)
         return signals, out, new_track
+
+    # -- the rPPG net's half of the step -----------------------------------
+
+    def _face_crops(self, frames_rgb: Tensor, track: TrackState) -> Tensor:
+        """Every frame of [F, S, ...] frames cropped at the cover of its
+        stream's face rect in ``track``: [F * S, C, C, 3] in the compute
+        dtype, scaled to [0, 1].  One K1 launch where the runner's crops
+        take K1 (``use_pallas``, uint8 frames), else the plain crop."""
+        f_n, s_n = frames_rgb.shape[:2]
+        size = self.config.rppg_net.crop
+        rect = warp.rect_arr(warp.axis_aligned_cover(warp.arr_rect(
+            self.runner._safe_rect(track.face_rect))))            # [S, 5]
+        rects = rect.repeat(f_n, 1)                              # [F*S, 5]
+        flat = frames_rgb.reshape((f_n * s_n,) + frames_rgb.shape[2:])
+        planar = is_planar_frames(flat)
+        dtype = self.runner.dtype
+        if self.config.inference.use_pallas and flat.dtype == torch.uint8:
+            if not planar:
+                flat = flat.permute(0, 3, 1, 2).contiguous()
+            crops = warp_kernel.multi_crop(
+                flat, rects[:, None, :4].contiguous(), (size,), dtype=dtype,
+                out_dtype=dtype, scale=1.0 / 255.0)[0]
+            return crops.permute(0, 2, 3, 1)
+        nhwc = flat.permute(0, 2, 3, 1) if planar else flat
+        return (warp.crop_rect(nhwc, warp.arr_rect(rects), size)
+                / 255.0).to(dtype)
+
+    def _clip_push(self, clip: ClipState, crops: Tensor, ts: Tensor
+                   ) -> ClipState:
+        """``crops`` [F * S, ...] (frame-major) pushed in frame order where
+        their timestamps ``ts`` [F, S] are finite and later than the
+        stream's newest crop; the others go to the spare slot."""
+        f_n, s_n = ts.shape
+        t = clip.ts.shape[1] - 1
+        newest = torch.gather(clip.ts, 1, ((clip.head - 1) % t)[:, None])
+        prev = torch.cat([newest.T, ts[:-1]]).nan_to_num(nan=-math.inf)
+        fresh = torch.isfinite(ts) & (ts > torch.cummax(prev, 0).values)
+        rank = torch.cumsum(fresh, 0) - 1                       # [F, S]
+        slot = torch.where(fresh, (clip.head + rank) % t, t)
+        rows = torch.arange(s_n, device=ts.device) * (t + 1)
+        idx = (rows + slot).reshape(-1)
+        n = fresh.sum(0)
+        return ClipState(
+            clip.crops.flatten(0, 1).index_copy(0, idx, crops)
+            .view_as(clip.crops),
+            clip.ts.reshape(-1).index_copy(0, idx, ts.reshape(-1))
+            .view_as(clip.ts),
+            (clip.head + n) % t,
+            torch.clamp(clip.new + n.to(torch.int32), max=t))
+
+    def _clip_input(self, clip: ClipState
+                    ) -> tuple[Tensor, Tensor | None, int, Tensor | None]:
+        """The streams the net runs on this call: those whose ring is full
+        and has had ``hop`` new crops since the net last ran.  Reads their
+        count to the host (one sync) -> (due [S], rows the net runs on
+        (None: every stream, in order), due count, their standardised clips
+        [B, T, C, C, 3]).  ``rows`` pads the due streams to the next size
+        of ``_pow2_ladder(S)``, so a count pays for its power of two and
+        the net sees few shapes."""
+        s_n = clip.new.shape[0]
+        full = torch.isfinite(clip.ordered_ts()).all(1)
+        due = full & (clip.new >= self.config.rppg_net.hop)
+        total = due.sum()
+        with span("bpv.sync.clip_gate"):
+            n_due = int(total.item())
+        count("sync.clip_gate")
+        if n_due == 0:
+            return due, None, 0, None
+        kk = next(v for v in _pow2_ladder(s_n) if v >= n_due)
+        rows = (None if kk == s_n else
+                torch.argsort((~due).to(torch.int8), stable=True)[:kk])
+        x = clip.ordered(rows)
+        dims = tuple(range(1, x.ndim))
+        for part in x.split(_STANDARDISE_ROWS):
+            # (x - mean) / population std in f32, a few clips at a time
+            # (a whole batch in f32 would take 4x the ring's memory); a
+            # constant clip gives zeros.
+            f = part.to(torch.float32)
+            f -= f.mean(dims, keepdim=True)
+            var = f.square().mean(dims, keepdim=True)
+            part.copy_(f.mul_(torch.where(var > 0, torch.rsqrt(var), 0.0)))
+        return due, rows, n_due, x
+
+    def _rppg_half(self, state: RppgEngineState, track: TrackState,
+                   models: ModelResults, frames_rgb: Tensor,
+                   timestamps: Tensor
+                   ) -> tuple[RppgEngineState, StepOutputs]:
+        """After the runner: F frames [F, S, ...] cropped at the face rects
+        from before the call and pushed (``bpv.clip``), the net on the
+        streams due (``bpv.net.physformer``), its BVP and the ring's
+        timestamps as the raw ring of each such stream's one signal, then
+        the analysis on every stream (``bpv.signal``; the BPM ring pushed
+        where the net ran)."""
+        f_n, s_n = timestamps.shape
+        with span("bpv.clip"):
+            crops = self._face_crops(frames_rgb, state.track)
+            clip = self._clip_push(state.clip, crops, timestamps)
+            count("clip.pushed", f_n * s_n)
+            due, rows, n_due, x = self._clip_input(clip)
+        bvp = None
+        if n_due:
+            count("clip.runs", n_due)
+            with span("bpv.net.physformer"):
+                bvp = self.rppg(x)
+        sig_st = state.signals
+        with span("bpv.signal"):
+            if bvp is not None:
+                if rows is not None:
+                    bvp = torch.zeros((s_n, bvp.shape[1]), dtype=bvp.dtype,
+                                      device=bvp.device).index_copy(
+                                          0, rows, bvp)
+                sig_st = sig_st._replace(
+                    raw_x=torch.where(due[:, None], clip.ordered_ts(),
+                                      sig_st.raw_x),
+                    raw_y=torch.where(due[:, None, None], bvp[:, None],
+                                      sig_st.raw_y))
+                clip = clip._replace(new=torch.where(due, 0, clip.new))
+            rois = torch.full((s_n, 1, 6), _NAN, device=timestamps.device)
+            signals, out = self.signal_analyze(sig_st, rois, models,
+                                               sig_st.raw_x[:, -1], due)
+        return RppgEngineState(signals, track, clip), out
 
     def step(self, params, state: EngineState, frame_rgb: Tensor,
              timestamp: Tensor) -> tuple[EngineState, StepOutputs]:

@@ -10,6 +10,7 @@ one sync a landmarker a call, and the detector rows and streams served
 from the count they already read.
 """
 
+import dataclasses
 import json
 
 import pytest
@@ -258,3 +259,78 @@ def test_count_report_and_clear():
     p.clear()
     assert p.counts == {} and p.stats == {}
     assert p.count_report().splitlines()[1:] == []
+
+
+# -- PhysFormer's clip ring and net ------------------------------------------
+
+PF_NET = tconfig.PhysFormerConfig(dim=24, ff_dim=36, num_heads=4,
+                                  num_layers=3, clip_frames=8, crop=32,
+                                  hop=8)
+PF_SPANS = {"bpv.clip", "bpv.net.physformer", "bpv.pf.stem", "bpv.pf.trunk"}
+
+
+@pytest.fixture(scope="module")
+def pf_engine():
+    """The PhysFormer preset at 48x64 with a tiny net (8-frame clips of
+    32x32 crops), float32."""
+    cfg = tconfig.physformer_config(S, H, W, PF_NET)
+    return Engine(dataclasses.replace(
+        cfg, compute_dtype="float32",
+        inference=dataclasses.replace(cfg.inference, **NO_FILES)),
+        device="cpu")
+
+
+def _pf_frames(n: int, first: int = 0):
+    g = torch.Generator().manual_seed(100 + first)
+    frames = torch.randint(0, 256, (n, S, 3, H, W), dtype=torch.uint8,
+                           generator=g)
+    ts = ((torch.arange(n, dtype=torch.float32) + 1 + first)
+          / 30.0)[:, None].repeat(1, S)
+    return frames, ts
+
+
+@pytest.mark.parametrize("lagged", [True, False], ids=["lagged", "step"])
+def test_physformer_spans_and_counters(pf_engine, lagged, tmp_path):
+    """A call that fills the ring and runs the net: ``bpv.clip`` and
+    ``bpv.net.physformer`` once, inside the step, the stem and trunk once
+    inside the net; ``clip.pushed`` counts the call's S x F crops and
+    ``clip.runs`` the S clips.  Frame by frame, the ring is filled to one
+    short of its length first."""
+    eng = pf_engine
+    st = tracked_state(eng)
+    n = PF_NET.clip_frames
+    frames, ts = _pf_frames(n)
+    if lagged:
+        def one():
+            return eng.batch_step_lagged(eng.params, st, frames, ts)
+    else:
+        st, _ = eng.batch_step_lagged(eng.params, st, frames[:-1], ts[:-1])
+
+        def one():
+            return eng.batch_step(eng.params, st, frames[-1], ts[-1])
+    f_n = n if lagged else 1
+    before = dict(profiling.profiler.counts)
+    _, spans = traced(one, tmp_path / "trace.json")
+    counts = {k: v - before.get(k, 0)
+              for k, v in profiling.profiler.counts.items()}
+    for name in PF_SPANS:
+        assert sum(s[0] == name for s in spans) == 1, name
+    step = [s for s in spans if s[0] == "bpv.step"]
+    net = [s for s in spans if s[0] == "bpv.net.physformer"]
+    assert len(step) == 1
+    for s in spans:
+        if s[0] in PF_SPANS:
+            assert _inside(s, step[0]), s
+        if s[0].startswith("bpv.pf."):
+            assert _inside(s, net[0]), s
+    assert counts["clip.pushed"] == S * f_n
+    assert counts["clip.runs"] == S
+
+
+def test_the_flagship_opens_no_physformer_span(engine, tmp_path):
+    st0 = tracked_state(engine)
+    before = dict(profiling.profiler.counts)
+    _, spans = traced(lambda: call(engine, st0, True), tmp_path / "t.json")
+    assert not PF_SPANS & {n for n, _, _ in spans}
+    assert not [k for k, v in profiling.profiler.counts.items()
+                if k.startswith("clip.") and v != before.get(k, 0)]
