@@ -28,18 +28,22 @@ outputs.
 
 Activations are in the compute dtype (bf16 on the card), channels last:
 the clip comes in as [B, T, C, C, 3] (the ring's layout).  Each stem layer
-runs as a 2-D conv over the B*T frames: stem0's kernel is one frame deep
-and it runs on the 2x2-packed frame (12 channels in place of 3, which
-cuDNN's tensor-core convs do not take), its four output groups the four
-positions of its max-pool (:func:`_packed_stem0`); stem1's and stem2's
-three temporal taps become channels (a frame's channels beside its
-neighbours', :func:`_temporal_taps`).  The 2x2 max-pool follows, and the
-bias and ReLU come after it, on a quarter of the values (both commute
-with the max).  cuDNN's 3-D convs at these shapes ran slower (NVIDIA
-H100: stem1 58.7 ms against 39.2 ms, stem2 25.4 against 15.1, 64 clips;
-stem0 unpacked, 3 channels: 45.5 ms).  The Q/K conv runs as a channels-last-3d conv, the
-depthwise one planar, the head's [3, 1, 1] convs as products over the
-temporal taps; ``scaled_dot_product_attention`` computes the attention
+(``kernels/pf_stem.py``) is one conv, its 1x2x2 max-pool, bias and ReLU:
+stem0's kernel is one frame deep and it runs on the 2x2-packed frame (12
+channels in place of 3), its four output groups the four positions of its
+max-pool (:func:`_packed_stem0`); stem1 and stem2 read their three
+temporal taps.  With ``use_kernel`` a bf16 net on a card runs kernel K7
+(``pf_stem``: the taps read in place, the pool, bias and ReLU in its
+epilogue, one launch a layer; it takes bf16 alone, so a net in another
+dtype keeps the plain stem); otherwise ``pf_stem_plain``, a 2-D conv over
+the B*T frames (stem1's and stem2's taps as channels, a frame's beside its
+neighbours', :func:`temporal_taps`), then the pool, and the bias and ReLU
+on a quarter of the values (both commute with the max).  cuDNN's 3-D
+convs at these shapes ran slower (NVIDIA H100: stem1 58.7 ms against 39.2
+ms, stem2 25.4 against 15.1, 64 clips; stem0 unpacked, 3 channels: 45.5
+ms).  The Q/K conv runs as a channels-last-3d conv, the depthwise one
+planar, the head's [3, 1, 1] convs as products over the temporal taps;
+``scaled_dot_product_attention`` computes the attention
 (``scale=1/gra_sharp``).  Products accumulate in f32; the residual stream,
 the LayerNorms, the spatial mean and the last projection are f32.  Spans:
 ``bpv.pf.stem`` (the three stem layers), ``bpv.pf.trunk`` (the patch
@@ -55,20 +59,13 @@ import torch
 import torch.nn.functional as F
 
 from bp_from_video_tpu_torch.config import PhysFormerConfig
+from bp_from_video_tpu_torch.kernels import pf_stem
 from bp_from_video_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 BN_EPS = 1e-5
 LN_EPS = 1e-6
 _CL3 = torch.channels_last_3d
-
-
-def _pool_bias_relu(y: Tensor, b: Tensor) -> Tensor:
-    """Channels-last [N, C, H, W] -> 2x2 max-pooled, plus ``b``, ReLU:
-    [N, H/2, W/2, C]."""
-    n, c, h, w = y.shape
-    v = y.permute(0, 2, 3, 1).reshape(n, h // 2, 2, w // 2, 2, c)
-    return F.relu_(v.amax((2, 4)).add_(b))
 
 
 def _packed_stem0(w: Tensor) -> Tensor:
@@ -89,7 +86,7 @@ def _packed_stem0(w: Tensor) -> Tensor:
     return wp.reshape(4 * co, 4 * ci, 3, 3)
 
 
-def _temporal_taps(y: Tensor) -> Tensor:
+def temporal_taps(y: Tensor) -> Tensor:
     """[B, T, ..., C] -> [B, T, ..., 3C]: each frame's channels after its
     previous frame's and before its next's, zero past the clip's ends (the
     input of a conv three frames deep, as one product)."""
@@ -198,10 +195,13 @@ def folded(cfg: PhysFormerConfig, params: dict) -> dict:
 
 class PhysFormer:
     """The folded net in ``dtype`` on ``device``; ``net(x)`` is the BVP f32
-    [B, T] of standardised clips ``x`` [B, T, C, C, 3] in ``dtype``."""
+    [B, T] of standardised clips ``x`` [B, T, C, C, 3] in ``dtype``.
+    ``use_kernel``: a bf16 net on a CUDA device runs its stem on kernel K7
+    (which takes bf16 alone); any other net keeps the plain stem.  The
+    route is chosen here, once."""
 
     def __init__(self, cfg: PhysFormerConfig, params: dict,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, use_kernel: bool = False):
         self.cfg, self.dtype = cfg, dtype
         f = folded(cfg, params)
 
@@ -231,6 +231,13 @@ class PhysFormer:
         w0 = F.pad(_packed_stem0(w0[:, :, 0]), (0, 0, 0, 0, 0, 4))
         self.stem = [(put(w0).contiguous(memory_format=torch.channels_last),
                       put(b0)), frames(f["stem1"]), frames(f["stem2"])]
+        # K7's layout of the same weights for a bf16 net on a card
+        # (``kernel_weights``).
+        on_card = device is not None and torch.device(device).type == "cuda"
+        self.stem_k7 = ([pf_stem.kernel_weights(w, b, packed=i == 0)
+                         for i, (w, b) in enumerate(self.stem)]
+                        if use_kernel and on_card and dtype == torch.bfloat16
+                        else None)
         # The patch embedding (kernel = stride) as a product over patches:
         # the weight's input axes in a patch's channels-last order.
         w, b = f["patch"]
@@ -248,27 +255,17 @@ class PhysFormer:
         self.last = (w[0, :, 0], b)
 
     def stem_apply(self, x: Tensor) -> Tensor:
-        """[B, T, C, C, 3] -> [B, T, C/8, C/8, dim].  Each layer is a 2-D
-        conv over the B*T frames (stem0's kernel is one frame deep, and it
-        runs on the 2x2-packed frame, its four output groups the four
-        positions its max-pool takes; stem1's and stem2's three temporal
-        taps are the channels of the frame and its two neighbours, zero
-        past the clip's ends), then the 2x2 max-pool, and the bias and
-        ReLU on the pooled map (both commute with the max)."""
-        bsz, t, hh, ww, _ = x.shape
-        (w0, b0), (w1, b1), (w2, b2) = self.stem
-        n, co = bsz * t, b0.shape[0]
-        packed = x.reshape(n, hh // 2, 2, ww // 2, 2, 3).permute(
-            0, 1, 3, 2, 4, 5).reshape(n, hh // 2, ww // 2, 12)
-        y = F.conv2d(F.pad(packed, (0, 4)).permute(0, 3, 1, 2), w0,
-                     padding=1)                 # the 4 pool positions' maps
-        m = F.relu_(y.permute(0, 2, 3, 1).unflatten(-1, (4, co)).amax(-2)
-                    .add_(b0))
-        for w, b in ((w1, b1), (w2, b2)):
-            taps = _temporal_taps(m.unflatten(0, (bsz, t))).flatten(0, 1)
-            m = _pool_bias_relu(F.conv2d(taps.permute(0, 3, 1, 2), w,
-                                         padding=1), b)
-        return m.unflatten(0, (bsz, t))
+        """[B, T, C, C, 3] -> [B, T, C/8, C/8, dim]: the three stem layers,
+        on K7 for a bf16 net on a card with ``use_kernel``, else their plain
+        composition."""
+        if self.stem_k7 is not None:
+            x = x.contiguous()
+            for wk, b in self.stem_k7:
+                x = pf_stem.pf_stem(x, wk, b)
+            return x
+        for w, b in self.stem:
+            x = pf_stem.pf_stem_plain(x, w, b)
+        return x
 
     def _grid(self, tok: Tensor, gt: int) -> Tensor:
         """Tokens [B, P, C] -> the channels-last-3d view [B, C, gt, g, g]."""
@@ -320,7 +317,7 @@ class PhysFormer:
         y = x.to(self.dtype).unflatten(1, (gt, g * g))       # [B, t, g*g, C]
         for w, b in self.up:
             y = y.repeat_interleave(2, dim=1)
-            y = F.elu(F.linear(_temporal_taps(y), w, b))
+            y = F.elu(F.linear(temporal_taps(y), w, b))
         feat = y.float().mean(2)                             # [B, T, dim/2]
         w, b = self.last
         return feat @ w + b

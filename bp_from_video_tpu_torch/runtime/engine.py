@@ -200,8 +200,9 @@ class Engine:
                     f"net's BVP fills the raw ring, {net.clip_frames}")
             if rppg_params is None:
                 rppg_params = physformer.init_params(net, _seed("rppg"))
-            self.rppg = physformer.PhysFormer(net, rppg_params, dtype,
-                                              self.device)
+            self.rppg = physformer.PhysFormer(
+                net, rppg_params, dtype, self.device,
+                use_kernel=config.inference.use_pallas)
 
     # -- state ----------------------------------------------------------------
 

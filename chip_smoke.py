@@ -6,13 +6,15 @@ Phases (each fatal on failure):
 
 1. build the hand-written CUDA kernels from ``bp_from_video_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together);
-2. hold each of the six kernels against its plain PyTorch version on the
-   card at the flagship shapes (64 streams of 480x640, bf16; K3 at its 11
-   launch shapes; K5/K6 at all seven face-mesh stage shapes, K6 also at
+2. hold each of the seven kernels against its plain PyTorch version on
+   the card at the flagship shapes (64 streams of 480x640, bf16; K3 at its
+   11 launch shapes; K5/K6 at all seven face-mesh stage shapes, K6 also at
    3l's batch of 8; both SASS checked for tensor-core HMMA instructions;
    K4 through both its entries, at the flagship ROI sizes, also weighted
-   by the segmenter's skin view read in place), and time the kernel, the
-   plain version and a PyTorch yardstick with CUDA events;
+   by the segmenter's skin view read in place; K7 at the physformer cell's
+   64 clips of 160 frames, its three stem layers, its SASS checked for
+   warpgroup HGMMA instructions), and time the kernel, the plain version
+   and a PyTorch yardstick with CUDA events;
 3. run the flagship ``Engine.batch_step`` (``flagship_config()``) over a
    synthetic pulsing clip long enough to fill the 250-sample ring, with the
    kernels' launch counters set to 0 just before and read just after:
@@ -58,6 +60,10 @@ Phases (each fatal on failure):
    packed stem twins) and with the compiled mesh taking packed crops, then
    both unpacked as a control, and each landmark net's device time alone,
    packed and unpacked (3l and 3m also log BPM at step 60, not held);
+   (3n) ``physformer_config`` (the published PhysFormer, crop 128, bf16)
+   on 3's clip, every stream tracked, two ``batch_step_lagged`` calls of
+   160 frames (the ``physformer.chunk160`` cell's call): K7's launches
+   (three a call), the net run on every clip each call, the BVP finite;
 4. run a small f32 config on the card and on the CPU (plain versions) over
    the same clips, with stand-ins, with a compiled face graph, with both
    earlier presets, with ``multistream`` (plain and lagged, composed),
@@ -502,9 +508,10 @@ def _k3_launch(tag, x, wmat, spec, b, alpha, cin, resid):
                 flops=flops), want
 
 
-def sass_hmma(name: str) -> int:
-    """HMMA (tensor-core) instructions in a built kernel library's SASS,
-    read with ``cuobjdump -sass`` (the toolkit's, else Triton's copy)."""
+def sass_hmma(name: str, op: str = "HMMA") -> int:
+    """Tensor-core instructions (``op``: HMMA, or HGMMA for warpgroup MMAs)
+    in a built kernel library's SASS, read with ``cuobjdump -sass`` (the
+    toolkit's, else Triton's copy)."""
     from bp_from_video_tpu_torch.kernels import build
     tool = [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")]
     try:
@@ -518,7 +525,7 @@ def sass_hmma(name: str) -> int:
         fail("cuobjdump not found")
     sass = subprocess.run([exe, "-sass", build.lib_path(name)],
                           capture_output=True, text=True, check=True).stdout
-    return sum("HMMA" in line for line in sass.splitlines())
+    return sum(op in line for line in sass.splitlines())
 
 
 def check_dense_s2_block(engine, gen, dev, s: int = 64):
@@ -823,6 +830,118 @@ def check_stem_packed(gen, dev, s: int = 64):
                 bound_ms=b, bound_by=by, library_ms=tot["lib"])
 
 
+# K7's warpgroup MMAs with its k-loops unrolled: KS k-steps of 16 times MT
+# m16 slices a warp, a layer (stem0 9 x 2, stem1 41 x 2, stem2 81 x 1).
+K7_HGMMA = 9 * 2 + 41 * 2 + 81 * 1
+# K7's stress cases beyond the cell's: (clips, frames, seed).
+K7_STRESS = ((64, 160, 101), (64, 160, 102), (63, 160, 103), (61, 157, 104))
+
+
+def check_pf_stem(gen, dev, b: int = 64, t: int = 160):
+    """K7 at the ``physformer.chunk160`` cell's shapes: 64 clips of 160
+    frames through the published PhysFormer's three stem layers (crop 128),
+    each layer fed the plain version's output of the layer before, timed;
+    then ``K7_STRESS``'s seeds and shapes, every output held to one bf16
+    ulp of the largest.  Its SASS holds one HGMMA a k-step and m16 slice
+    (``K7_HGMMA``): the k-loops are unrolled, so every A fragment lives in
+    registers of its own until the MMA that reads it has retired."""
+    from bp_from_video_tpu_torch.config import PhysFormerConfig
+    from bp_from_video_tpu_torch.kernels import pf_stem as ps
+    from bp_from_video_tpu_torch.models import physformer as pfm
+    hgmma = sass_hmma("pf_stem", "HGMMA")
+    log(f"K7 pf_stem SASS: {hgmma} HGMMA (warpgroup MMA) instructions "
+        f"(want {K7_HGMMA}: every k-step of every layer its own)")
+    if hgmma != K7_HGMMA:
+        fail("pf_stem's k-loops are not unrolled into one warpgroup MMA a "
+             "k-step and m16 slice: its A fragments may share registers "
+             "with an MMA still in flight")
+    net = PhysFormerConfig(num_layers=1)
+    m = pfm.PhysFormer(net, pfm.init_params(net, 0), torch.bfloat16, dev,
+                       use_kernel=True)
+    x = torch.randn((b, t, net.crop, net.crop, 3), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    tot = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0)
+    errs = []
+    for i, ((w, bias), (wk, bk)) in enumerate(zip(m.stem, m.stem_k7)):
+        got = ps.pf_stem(x, wk, bk)
+        want = ps.pf_stem_plain(x, w, bias)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(float(want.float().abs().max())))
+                      - 7)
+        # The plain version rounds the conv to bf16 before the bias, K7
+        # once after it: one ulp of the largest output.
+        log(f"K7 pf_stem stem{i} x{tuple(x.shape)} -> {tuple(got.shape)}: "
+            f"max_abs_err {err:.3g} (tol {ulp:.3g}: one bf16 ulp of the "
+            f"largest output)")
+        if err > ulp or not bool(torch.isfinite(got.float()).all()):
+            fail(f"pf_stem (stem{i}) disagrees with its plain version")
+        errs.append(err)
+        cin, hw, cout = x.shape[-1], x.shape[2], bias.shape[0]
+        if cin == 3:
+            kt, k = 1, 5
+            lib_in = torch.nn.functional.pad(ps._pack(x.flatten(0, 1)), (
+                0, 4)).permute(0, 3, 1, 2)
+        else:
+            kt, k = 3, 3
+            lib_in = pfm.temporal_taps(x).flatten(0, 1).permute(0, 3, 1, 2)
+        # gpubench/systems/physformer ``stem_layer``'s count.
+        flops = 2.0 * b * t * hw * hw * cout * cin * kt * k * k
+        nbytes = (b * t * hw * hw * cin + b * t * (hw // 2) ** 2 * cout
+                  + cout * cin * kt * k * k + cout) * 2
+
+        def library(lib_in=lib_in, w=w):
+            return torch.nn.functional.conv2d(lib_in, w, padding=1)
+        ms = time_ms(lambda: ps.pf_stem(x, wk, bk), reps=5, inner=2)
+        pl = time_ms(lambda: ps.pf_stem_plain(x, w, bias), reps=3, inner=1,
+                     warm=1)
+        lib = time_ms(library, reps=3, inner=1, warm=1)
+        bnd, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+        log(f"K7 stem{i} times: kernel {ms:.4f} ms, plain {pl:.4f} ms, cuDNN "
+            f"conv alone {lib:.4f} ms, bound {bnd:.4f} ms ({by}; "
+            f"{100 * bnd / ms:.1f}% of it)")
+        for key, v in (("ms", ms), ("plain", pl), ("lib", lib),
+                       ("bound", bnd)):
+            tot[key] += v
+        del lib_in, got
+        x = want
+    log(f"K7 per call (3 launches): kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain']:.4f} ms, cuDNN convs alone {tot['lib']:.4f} ms, "
+        f"bound {tot['bound']:.4f} ms ({100 * tot['bound'] / tot['ms']:.1f}% "
+        "of it)")
+    # Other seeds, and other clip counts and lengths, so that each block of
+    # the persistent grid walks other units, bands and column slices.
+    for bsz, tt, seed in K7_STRESS:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((bsz, tt, net.crop, net.crop, 3), generator=g,
+                        device=dev).to(torch.bfloat16)
+        for i, ((w, bias), (wk, bk)) in enumerate(zip(m.stem, m.stem_k7)):
+            want = ps.pf_stem_plain(x, w, bias)
+            gap = (ps.pf_stem(x, wk, bk).float() - want.float()).abs()
+            ulp = 2.0 ** (math.floor(math.log2(float(
+                want.float().abs().max()))) - 7)
+            bad = int((gap > ulp).sum())
+            err = float(gap.max())
+            log(f"K7 stress {bsz}x{tt} seed {seed} stem{i}: max_abs_err "
+                f"{err:.3g} (tol {ulp:.3g}), {bad} of {gap.numel()} outputs "
+                "past it")
+            if bad:
+                fail(f"pf_stem (stem{i}, {bsz} clips of {tt}, seed {seed}) "
+                     "disagrees with its plain version")
+            errs.append(err)
+            del gap
+            x = want
+    del x, want
+    torch.cuda.empty_cache()
+    return dict(name="pf_stem", route="cuda",
+                source="bp_from_video_tpu_torch/csrc/pf_stem.cu",
+                replaces="none (the JAX package has no PhysFormer)",
+                max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain"],
+                bound_ms=tot["bound"],
+                bound_by="operations (stem1, stem2), bytes (stem0)",
+                library_ms=tot["lib"])
+
+
 # The face mesh's seven stages: (spatial size, C, D).
 MESH_STAGES = ((128, 16, 8), (64, 32, 16), (32, 64, 32), (16, 128, 64),
                (8, 128, 64), (4, 128, 64), (2, 128, 64))
@@ -969,13 +1088,14 @@ def check_bottleneck(gen, dev, s: int = 64, stages=MESH_STAGES,
 
 
 def counters():
-    from bp_from_video_tpu_torch.kernels import (block, bottleneck, roi, stem,
-                                                 warp)
+    from bp_from_video_tpu_torch.kernels import (block, bottleneck, pf_stem,
+                                                 roi, stem, warp)
     return {"multi_crop": warp.multi_crop, "stem_packed": stem.stem_packed,
             "dense_s2_block": block.dense_s2_block,
             "roi_sums": roi.roi_sums, "roi_samples": roi.roi_samples,
             "bottleneck_s1": bottleneck.bottleneck_s1,
-            "bottleneck_chain": bottleneck.bottleneck_chain}
+            "bottleneck_chain": bottleneck.bottleneck_chain,
+            "pf_stem": pf_stem.pf_stem}
 
 
 def zero_counters():
@@ -2425,6 +2545,50 @@ def net_ms(engine, params, frames, calls: int = 10) -> dict:
     return out
 
 
+def physformer_path(clip, dev, card: str) -> collections.Counter:
+    """Phase 3n: ``physformer_config`` over ``clip``'s streams (every one
+    tracked, the face mesh compiled with a template readout), two calls of
+    ``batch_step_lagged`` with a window of 160 frames (frames 0-159, then
+    100-259 stamped on from 160), with the launch counters set to 0 just
+    before and read just after; returns the counts."""
+    from bp_from_video_tpu_torch.config import physformer_config
+    from bp_from_video_tpu_torch.models.mesh_graph import face_mesh_graph
+    from bp_from_video_tpu_torch.runtime.engine import Engine
+    from bp_from_video_tpu_torch.utils import profiling
+    s, h, w = clip.shape[1], clip.shape[3], clip.shape[4]
+    cfg = physformer_config(s, h, w)
+    f = cfg.rppg_net.clip_frames
+    engine = Engine(cfg, graphs={"flm_lm": template_mesh(face_mesh_graph(7))})
+    if engine.rppg.stem_k7 is None:
+        fail("[3n] the bf16 PhysFormer on the card does not take K7")
+    state = tracked_state(engine, h, w, torch.ones(s, dtype=torch.bool,
+                                                   device=dev))
+    runs0 = profiling.profiler.counts.get("clip.runs", 0)
+    zero_counters()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, _ = run_clip(engine, engine.params, state, clip[:f], lagged=f)
+    state, _ = run_clip(engine, engine.params, state,
+                        clip[clip.shape[0] - f:], t0=f, lagged=f)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in counters().items()}
+    runs = profiling.profiler.counts.get("clip.runs", 0) - runs0
+    bvp = state.signals.raw_y[:, 0]
+    log(f"[3n] physformer_config S={s} {h}x{w} bf16, 2 calls of "
+        f"batch_step_lagged F={f} on {card}: {secs:.2f} s (host clock, the "
+        f"first call's builds included); launches {launches}; clips run "
+        f"{runs}; BVP finite {bool(torch.isfinite(bvp).all())}, std "
+        f"{float(bvp.float().std()):.4g}")
+    if launches["pf_stem"] != 3 * 2:
+        fail(f"[3n] K7 launched {launches['pf_stem']} times over 2 calls, "
+             "not three a call")
+    if runs != 2 * s or not bool(torch.isfinite(bvp).all()):
+        fail("[3n] the net did not run on every clip each call, or its BVP "
+             "is not finite")
+    return collections.Counter(launches)
+
+
 def packed_path(clip, dev, card: str) -> collections.Counter:
     """Phase 3m: ``flagship_config()`` with the fused stem and trunk off,
     ``fuse_dw_pw`` and ``pack_s2d=64`` (the JAX bench's flagship with
@@ -3096,7 +3260,7 @@ def main():
     flag_engine = Engine(flagship_config())
     kernels = [check_multi_crop(gen, dev), check_stem_packed(gen, dev),
                check_dense_s2_block(flag_engine, gen, dev),
-               check_roi(gen, dev), k5, k6]
+               check_roi(gen, dev), k5, k6, check_pf_stem(gen, dev)]
     # K1 and K3 at the multistream batches: 8 streams a step, and 32 (8
     # streams x 4 frames) in the lagged step.
     for s in (8, 8 * LAGGED):
@@ -3151,6 +3315,11 @@ def main():
     log(f"phase 3m: the packed path (K1 pack=2 into the stand-ins' packed "
         f"stems and a packed-input mesh graph) ran through K1 and K4 "
         f"({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    total.update(physformer_path(clip, dev, card))
+    log(f"phase 3n: PhysFormer through batch_step_lagged ran its stem on K7, "
+        f"three launches a call ({time.perf_counter() - t:.1f} s)")
+    torch.cuda.empty_cache()
     for phase, name in (("3e", "butter_welch_face"), ("3g", "dual_roi_ls"),
                         ("3h", "ptt_filtered"), ("3f", "segmenter_fir")):
         if name == "segmenter_fir":

@@ -1,6 +1,7 @@
 """The port's CUDA kernels K1 (multi_crop), K2 (stem_packed), K3
-(dense_s2_block), K4 (roi_sums and roi_samples), K5 (bottleneck_s1) and K6
-(bottleneck_chain) against their plain PyTorch versions on the card, the
+(dense_s2_block), K4 (roi_sums and roi_samples), K5 (bottleneck_s1), K6
+(bottleneck_chain) and K7 (pf_stem, with PhysFormer on it against the
+published net) against their plain PyTorch versions on the card, the
 device feeder's pinned, asynchronous uploads against its CPU batches, the
 rotated crops (shear, both methods, and exact) card against CPU, the
 hybrid rotation gate's one host sync a step, the gates' sync counters
@@ -20,12 +21,16 @@ import numpy as np
 import pytest
 import torch
 
-from bp_from_video_tpu_torch.config import SignalColorChannel
+from bp_from_video_tpu_torch.config import (PhysFormerConfig,
+                                            SignalColorChannel)
 from bp_from_video_tpu_torch.kernels import block as tbk
 from bp_from_video_tpu_torch.kernels import bottleneck as tbn
+from bp_from_video_tpu_torch.kernels import pf_stem as tps
 from bp_from_video_tpu_torch.kernels import roi as trk
 from bp_from_video_tpu_torch.kernels import stem as tsk
 from bp_from_video_tpu_torch.kernels import warp as twk
+from bp_from_video_tpu_torch.models import physformer as tpf
+from bp_from_video_tpu_torch.models import physformer_ref as tpf_ref
 from bp_from_video_tpu_torch.models.runner import map_leaves
 
 pytestmark = pytest.mark.cuda
@@ -635,8 +640,12 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
     ops = _bn_units(1, 2, 16, 8, 16, torch.float32, cuda_device)
     xb = torch.zeros((1, 16, 6, 6), device=cuda_device)
     fns = (twk.multi_crop, tbk.dense_s2_block, trk.roi_sums, trk.roi_samples,
-           tsk.stem_packed, tbn.bottleneck_s1, tbn.bottleneck_chain)
+           tsk.stem_packed, tbn.bottleneck_s1, tbn.bottleneck_chain,
+           tps.pf_stem)
     n = [f.launches for f in fns]
+    net = _pf_net(cuda_device)
+    clip = torch.zeros((1, 8, 128, 128, 3), dtype=torch.bfloat16,
+                       device=cuda_device)
     twk.multi_crop(torch.from_numpy(frames).to(cuda_device),
                    torch.from_numpy(rects).to(cuda_device), (8, 8, 8))
     tbk.dense_s2_block(x, wmat, wspec, b, None, cin=3, resid=False)
@@ -649,12 +658,13 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
                     b)
     tbn.bottleneck_s1(xb, xb, *(o[0] for o in ops))
     tbn.bottleneck_chain(xb, *ops)
+    tps.pf_stem(clip, *net.stem_k7[0])
     torch.cuda.synchronize()
     assert [f.launches for f in fns] == [k + 1 for k in n]
     # A bf16 chain launches one kernel per unit but counts one call.
     opb = _bn_units(1, 3, 16, 8, 16, torch.bfloat16, cuda_device)
     tbn.bottleneck_chain(xb.to(torch.bfloat16), *opb)
-    n[-1] += 1
+    n[fns.index(tbn.bottleneck_chain)] += 1
     assert [f.launches for f in fns] == [k + 1 for k in n]
     # The plain versions launch no kernel and count nothing.
     tbn.bottleneck_chain_plain(xb, *ops)
@@ -663,6 +673,11 @@ def test_cuda_wrappers_count_each_launch(cuda_device):
     trk.roi_samples_plain(torch.from_numpy(fr).to(cuda_device),
                           torch.from_numpy(rois).to(cuda_device),
                           SignalColorChannel.GREEN)
+    tps.pf_stem_plain(clip, *net.stem[0])
+    assert [f.launches for f in fns] == [k + 1 for k in n]
+    # A PhysFormer call on the card launches K7 once a stem layer.
+    net(clip)
+    n[fns.index(tps.pf_stem)] += 3
     assert [f.launches for f in fns] == [k + 1 for k in n]
 
 
@@ -686,6 +701,162 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         twk.multi_crop(torch.zeros((1, 3, 1, 8), dtype=torch.uint8,
                                    device=cuda_device),
                        torch.zeros((1, 1, 4), device=cuda_device), (4,))
+
+
+@pytest.mark.parametrize("case", ["float32 x", "non-contiguous x",
+                                  "another frame", "weights on the CPU"])
+def test_cuda_pf_stem_rejects_what_the_kernel_does_not_take(cuda_device,
+                                                           case):
+    net = _pf_net(cuda_device)
+    x = torch.zeros((1, 2, 128, 128, 3), dtype=torch.bfloat16,
+                    device=cuda_device)
+    wk, bk = net.stem_k7[0]
+    if case == "float32 x":
+        x = x.float()
+    elif case == "non-contiguous x":
+        x = torch.zeros((1, 2, 128, 128, 4), dtype=torch.bfloat16,
+                        device=cuda_device)[..., :3]
+    elif case == "another frame":
+        x = x[:, :, :96, :96].contiguous()
+    else:
+        wk = wk.cpu()
+    with pytest.raises(ValueError):
+        tps.pf_stem(x, wk, bk)
+
+
+def _pf_net(device, layers=1, frames=8):
+    """The published PhysFormer at crop 128 in bf16 with K7's weights."""
+    cfg = PhysFormerConfig(num_layers=layers, clip_frames=frames, hop=frames)
+    return tpf.PhysFormer(cfg, tpf.init_params(cfg, 3), torch.bfloat16,
+                          device, use_kernel=True)
+
+
+def _pf_ulp(want) -> float:
+    """One bf16 ulp of the largest |value|."""
+    return 2.0 ** (math.floor(math.log2(float(want.float().abs().max()))) - 7)
+
+
+@pytest.mark.parametrize("layer", [0, 1, 2])
+@pytest.mark.parametrize("bsz,t", [(3, 5), (1, 1), (2, 41)])
+def test_cuda_pf_stem_matches_plain(cuda_device, layer, bsz, t):
+    """Each stem layer at its published widths: odd batches, clips of one
+    frame (both taps past the ends), of 5, and of 41 (a unit of 40 frames
+    and one more): within one bf16 ulp of the largest output of the plain
+    layer, which rounds the conv to bf16 before the bias where K7 rounds
+    once."""
+    net = _pf_net(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(bsz * 100 + t)
+    x = torch.randn((bsz, t, 128, 128, 3), generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    for w, b in net.stem[:layer]:
+        x = tps.pf_stem_plain(x, w, b)
+    want = tps.pf_stem_plain(x, *net.stem[layer])
+    got = tps.pf_stem(x, *net.stem_k7[layer])
+    gemm = tps.pf_stem_gemm(x, *net.stem_k7[layer])
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and bool(torch.isfinite(
+        got.float()).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_pf_ulp(want))
+    # Against the same products summed in f32 in another order: the same
+    # bf16 value but where the sums straddle a rounding boundary.
+    torch.testing.assert_close(got.float(), gemm.float(), rtol=0,
+                               atol=_pf_ulp(gemm))
+    assert float((got != gemm).float().mean()) < 1e-3
+
+
+def test_cuda_physformer_on_k7_is_within_bf16_rounding(cuda_device):
+    """PhysFormer with its stem on K7 against the published net in f32 (TF32
+    off), as the CPU's bf16 test holds the plain net: the largest gap
+    within 3 % of the largest output."""
+    cfg = PhysFormerConfig(num_layers=2, clip_frames=32, hop=32)
+    params = tpf.init_params(cfg, 4)
+    net = tpf.PhysFormer(cfg, params, torch.bfloat16, cuda_device,
+                         use_kernel=True)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = tpf_ref.standardise(torch.rand((2, 32, 128, 128, 3), generator=g,
+                                       device=cuda_device))
+    n = tps.pf_stem.launches
+    got = net(x.to(torch.bfloat16))
+    assert tps.pf_stem.launches == n + 3
+    want = tpf_ref.forward(map_leaves(lambda a: a.to(cuda_device), params),
+                           x.permute(0, 4, 1, 2, 3), cfg.num_heads,
+                           cfg.theta, cfg.gra_sharp)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / want.abs().max()) < 0.03
+
+
+@pytest.mark.parametrize("bsz,t,seed", [(64, 160, 11), (64, 160, 12),
+                                        (63, 160, 13), (61, 157, 14)])
+def test_cuda_pf_stem_at_the_cell_shape_matches_plain(cuda_device, bsz, t,
+                                                      seed):
+    """The three layers at the ``physformer.chunk160`` cell's 64 clips of
+    160 frames, on other seeds, and on 63 and 61 clips (and 157 frames: a
+    short last unit) so that each block of the persistent grid walks other
+    units, bands and column slices: every output within one bf16 ulp of the
+    plain layer's largest."""
+    net = _pf_net(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(seed)
+    x = torch.randn((bsz, t, 128, 128, 3), generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    for layer in range(3):
+        want = tps.pf_stem_plain(x, *net.stem[layer])
+        got = tps.pf_stem(x, *net.stem_k7[layer])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=_pf_ulp(want))
+        x = want
+        del got
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_physformer_engine_takes_k7_for_bf16_alone(cuda_device, dtype):
+    """``physformer_config`` on the card with ``use_pallas``: a bf16 engine
+    runs its stem on K7 (three launches a call), a float32 one keeps the
+    plain stem (K7 takes bf16 alone; the route is chosen when the net is
+    built), and both give the published net's BVP of the crops in the clip
+    ring: float32 within 1e-4, bf16 within the bf16 test's 3 %."""
+    import dataclasses
+
+    from bp_from_video_tpu_torch.config import physformer_config
+    from bp_from_video_tpu_torch.models.runner import _seed
+    from bp_from_video_tpu_torch.runtime.engine import Engine
+    net = PhysFormerConfig(num_layers=1, clip_frames=8, hop=8)
+    cfg = physformer_config(2, 96, 128, net)
+    no_files = dict(face_detector_path=None, face_landmarker_path=None,
+                    hand_landmarker_path=None, person_segmenter_path=None,
+                    hand_lm_standin_path=None, palm_det_standin_path=None,
+                    seg_standin_path=None)
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype,
+                              inference=dataclasses.replace(cfg.inference,
+                                                            **no_files))
+    assert cfg.inference.use_pallas
+    eng = Engine(cfg, device=cuda_device)
+    assert (eng.rppg.stem_k7 is not None) == (dtype == "bfloat16")
+    st = eng.init_state()
+    rect = torch.tensor([[64.0, 48.0, 60.0, 60.0, 0.0],
+                         [60.0, 44.0, 56.0, 48.0, 0.3]], device=cuda_device)
+    st = st._replace(track=st.track._replace(
+        face_rect=rect, face_tracking=torch.ones(2, dtype=torch.bool,
+                                                 device=cuda_device)))
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    frames = torch.randint(0, 256, (8, 2, 3, 96, 128), dtype=torch.uint8,
+                           generator=g, device=cuda_device)
+    ts = ((torch.arange(8, dtype=torch.float32, device=cuda_device) + 1)
+          / 30.0)[:, None].repeat(1, 2)
+    n = tps.pf_stem.launches
+    st, _ = eng.batch_step_lagged(eng.params, st, frames, ts)
+    torch.cuda.synchronize()
+    assert tps.pf_stem.launches == n + (3 if dtype == "bfloat16" else 0)
+    params = map_leaves(lambda a: a.to(cuda_device),
+                        tpf.init_params(net, _seed("rppg")))
+    want = tpf_ref.forward(params, tpf_ref.standardise(
+        st.clip.ordered().float()).permute(0, 4, 1, 2, 3), net.num_heads,
+        net.theta, net.gra_sharp)
+    got = st.signals.raw_y[:, 0]
+    assert bool(torch.isfinite(got).all())
+    tol = 1e-4 if dtype == "float32" else 0.03
+    assert float((got - want).abs().max() / want.abs().max()) < tol
 
 
 def test_cuda_chain_and_welch_timestamps_do_not_depend_on_tf32(cuda_device):
