@@ -17,9 +17,12 @@ Counterpart of ``bp_from_video_tpu/pallas/block_kernel.py``
 input and each unit rounds once.
 
 The wrappers launch the CUDA kernel for a CUDA tensor and take the plain
-versions for a CPU tensor.  On the card, bf16 x and weights take the
-tensor-core route (one launch per unit, planned by ``bottleneck_plan``;
-a shape without a plan raises), any other dtype mix the f32 FMA route.
+versions for a CPU tensor (float32 or bfloat16).  The kernel runs on the
+tensor cores and takes bf16 x, residual and weights only (one launch per
+unit, planned by ``bottleneck_plan``); any other dtype, or a shape without
+a plan, raises before a launch.  A graph compiled for the card in another
+dtype calls the plain versions, chosen once when it is compiled
+(``tflite_compiler.bottleneck_units``).
 """
 
 from __future__ import annotations
@@ -122,9 +125,13 @@ def _check(name, x, wd, bd, ad, wu, bu, au, lead, cout, last_act):
             or wu.dtype != wd.dtype):
         raise ValueError(f"{name}: x {x.dtype}, wd {wd.dtype}, wu "
                          f"{wu.dtype}: float32 or bfloat16 expected")
+    if x.is_cuda and (x.dtype, wd.dtype) != (torch.bfloat16,) * 2:
+        raise ValueError(f"{name}: x {x.dtype}, wd {wd.dtype}: the kernel "
+                         f"takes bfloat16 alone (another dtype runs "
+                         f"{name}_plain)")
 
 
-# -- the bf16 route's launch plan ----------------------------------------------
+# -- the kernel's launch plan -------------------------------------------------
 # The rule of `make_tc_plan` in csrc/bottleneck.cu, kept here so the CPU
 # tests can check it; the wrapper holds the two against each other once per
 # shape.
@@ -262,13 +269,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     """The built library with its entries' ctypes signatures, set once."""
     lib = build.load("bottleneck")
-    lib.bottleneck_scratch_floats.argtypes = [_I] * 4
-    lib.bottleneck_scratch_floats.restype = _I
     lib.bottleneck_plan.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
     lib.bottleneck_plan.restype = _I
-    lib.bottleneck_s1_launch.argtypes = [_P] * 10 + [_I] * 9 + [_P]
+    lib.bottleneck_s1_launch.argtypes = [_P] * 9 + [_I] * 7 + [_P]
     lib.bottleneck_s1_launch.restype = _I
-    lib.bottleneck_chain_launch.argtypes = [_P] * 10 + [_I] * 9 + [_P]
+    lib.bottleneck_chain_launch.argtypes = [_P] * 9 + [_I] * 7 + [_P]
     lib.bottleneck_chain_launch.restype = _I
     return lib
 
@@ -299,29 +304,21 @@ def _launch(entry: str, x, r, wd, bd, ad, wu, bu, au, units, cout,
     bd, ad, bu = (t.to(f32).contiguous() for t in (bd, ad, bu))
     au = None if au is None else au.to(f32).contiguous()
     lib = _lib()
-    scratch = buf = None
     if r is not None:
         r = r.contiguous()
-    if x.dtype == torch.bfloat16 and wd.dtype == torch.bfloat16:
-        _check_card_plan(bsz, h, w, c, d, cout)
-        # The kernel reads every operand in 16-byte pieces (cp.async, tile
-        # rows) or pixel pairs: a view off that alignment is copied.
-        x, r, wd, bd, ad, wu, bu, au = (
-            t if t is None or t.data_ptr() % 16 == 0 else t.clone()
-            for t in (x, r, wd, bd, ad, wu, bu, au))
-        if units > 1:                   # ping-pong between units
-            buf = torch.empty((bsz, cout, h, w), dtype=x.dtype, device=dev)
-    else:
-        scratch = torch.empty(lib.bottleneck_scratch_floats(units, c, d,
-                                                            cout),
-                              dtype=f32, device=dev)
+    _check_card_plan(bsz, h, w, c, d, cout)
+    # The kernel reads every operand in 16-byte pieces (cp.async, tile rows)
+    # or pixel pairs: a view off that alignment is copied.
+    x, r, wd, bd, ad, wu, bu, au = (
+        t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+        for t in (x, r, wd, bd, ad, wu, bu, au))
+    buf = None
+    if units > 1:                       # ping-pong between units
+        buf = torch.empty((bsz, cout, h, w), dtype=x.dtype, device=dev)
     out = torch.empty((bsz, cout, h, w), dtype=x.dtype, device=dev)
-    tail = (_ACTS[last_act], int(x.dtype == torch.bfloat16),
-            int(wd.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+    tail = (_ACTS[last_act], torch.cuda.current_stream(dev).cuda_stream)
     ptr = [wd.data_ptr(), bd.data_ptr(), ad.data_ptr(), wu.data_ptr(),
-           bu.data_ptr(), None if au is None else au.data_ptr(),
-           None if scratch is None else scratch.data_ptr()]
+           bu.data_ptr(), None if au is None else au.data_ptr()]
     if r is not None:
         err = lib.bottleneck_s1_launch(x.data_ptr(), r.data_ptr(), *ptr,
                                        out.data_ptr(), bsz, c, d, cout, h, w,
@@ -341,8 +338,9 @@ def bottleneck_s1(x: Tensor, residual: Tensor, wd: Tensor, bd: Tensor,
     (the ADD's other operand: x itself, or the padded max-pool after a
     downsample), both float32 or both bfloat16; wd [D, C] / wu [C', 9D]
     from ``pack_bottleneck_weights`` in one dtype; bd/ad: [D]; bu/au: [C']
-    (``au`` may be None unless ``last_act`` is "prelu").  Returns
-    [B, C', h, w] in x's dtype."""
+    (``au`` may be None unless ``last_act`` is "prelu").  On the card x
+    and the weights must be bfloat16.  Returns [B, C', h, w] in x's
+    dtype."""
     cout = wu.shape[0]
     _check("bottleneck_s1", x, wd, bd, ad, wu, bu, au, (), cout, last_act)
     if (tuple(residual.shape) != (x.shape[0], cout) + tuple(x.shape[2:])
@@ -366,9 +364,9 @@ def bottleneck_chain(x: Tensor, wd: Tensor, bd: Tensor, ad: Tensor,
                      wu: Tensor, bu: Tensor, au: Tensor, *,
                      last_act: str = "prelu") -> Tensor:
     """U chained same-shape units: on the card one call makes U kernel
-    launches (bf16; one for f32).  x: [B, C, h, w]; wd:
-    [U, D, C]; wu: [U, C, 9D]; bd/ad: [U, D]; bu/au: [U, C].  Each unit's
-    residual is its own input.  Returns [B, C, h, w] in x's dtype."""
+    launches, bfloat16 x and weights only.  x: [B, C, h, w]; wd: [U, D, C];
+    wu: [U, C, 9D]; bd/ad: [U, D]; bu/au: [U, C].  Each unit's residual is
+    its own input.  Returns [B, C, h, w] in x's dtype."""
     if wd.ndim != 3:
         raise ValueError(f"bottleneck_chain: wd {tuple(wd.shape)}")
     units = wd.shape[0]

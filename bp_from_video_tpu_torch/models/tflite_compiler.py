@@ -945,6 +945,18 @@ def _mirror_pad(x: Tensor, pads: list[tuple[int, int]]) -> Tensor:
     return x
 
 
+def bottleneck_units(dtype, device: torch.device
+                     ) -> tuple[Callable[..., Tensor], Callable[..., Tensor]]:
+    """What a graph compiled in ``dtype`` for ``device`` runs its fused
+    units (``PALLAS_BN``, ``PALLAS_BN_CHAIN``) on.  K5/K6 take bf16 alone,
+    so a graph for the card in another dtype binds the plain units; any
+    other graph calls the wrappers, which run the plain units themselves
+    on a CPU tensor."""
+    if device.type == "cuda" and dtype != torch.bfloat16:
+        return bn_kernel.bottleneck_s1_plain, bn_kernel.bottleneck_chain_plain
+    return bn_kernel.bottleneck_s1, bn_kernel.bottleneck_chain
+
+
 def compile_graph(graph: Graph, dtype=torch.float32, layout: str = "NHWC",
                   planar_inputs: bool = False, fuse_dw_pw: bool = False,
                   pack_s2d: int = 0, packed_inputs: bool = False,
@@ -1061,6 +1073,7 @@ def compile_graph(graph: Graph, dtype=torch.float32, layout: str = "NHWC",
     # Constants an op builds from host values (resize matrices, index
     # vectors), made once per device: each build is a host-to-device copy.
     made: dict = {}
+    bn_s1, bn_chain = bottleneck_units(dtype, device)
 
     def fn(p: dict[str, Tensor], *inputs: Tensor) -> list[Tensor]:
         if len(inputs) != len(graph.inputs):
@@ -1374,7 +1387,7 @@ def compile_graph(graph: Graph, dtype=torch.float32, layout: str = "NHWC",
                 # Fused bottleneck residual unit (fuse_bottlenecks): K5.
                 x = get_planar(ins[0]).to(dtype)
                 r = get_planar(ins[1]).to(dtype)
-                y = bn_kernel.bottleneck_s1(
+                y = bn_s1(
                     x, r, env[ins[2]].to(dtype), env[ins[3]], env[ins[4]],
                     env[ins[5]].to(dtype), env[ins[6]], env[ins[7]],
                     last_act=o["last_act"])
@@ -1383,7 +1396,7 @@ def compile_graph(graph: Graph, dtype=torch.float32, layout: str = "NHWC",
                 # A whole stage of self-residual units (chain_bottlenecks):
                 # K6.
                 x = get_planar(ins[0]).to(dtype)
-                y = bn_kernel.bottleneck_chain(
+                y = bn_chain(
                     x, env[ins[1]].to(dtype), env[ins[2]], env[ins[3]],
                     env[ins[4]].to(dtype), env[ins[5]], env[ins[6]],
                     last_act=o["last_act"])

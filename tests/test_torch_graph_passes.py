@@ -213,3 +213,50 @@ def test_unpack_s2d_inverts_pack_s2d(shape):
     assert torch.equal(warp_kernel.unpack_s2d(p), x)
     y = torch.randn((shape[0], 4 * c) + tuple(shape[2:]))
     assert torch.equal(warp_kernel.pack_s2d(warp_kernel.unpack_s2d(y)), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_fused_units_are_bound_at_compile_by_dtype(dtype, monkeypatch):
+    """``fuse_bn``'s units (a lone one and two chains): a graph compiled
+    for the card in bf16 calls the K5/K6 wrappers, in float32 the plain
+    units (the kernels take bf16 alone), chosen once when it compiles; a
+    graph compiled for the CPU calls the wrappers, which run the plain
+    units.  The outputs equal the CPU graph's, the plain units' own."""
+    from bp_from_video_tpu_torch.kernels import bottleneck as bn
+    from bp_from_video_tpu_torch.models.mesh_graph import face_mesh_graph
+    wrappers = (bn.bottleneck_s1, bn.bottleneck_chain)
+    plain = (bn.bottleneck_s1_plain, bn.bottleneck_chain_plain)
+    assert ttc.bottleneck_units(dtype, torch.device("cpu")) == wrappers
+    assert ttc.bottleneck_units(dtype, torch.device("cuda")) == (
+        wrappers if dtype == torch.bfloat16 else plain)
+    graph = face_mesh_graph(3, 32, ((16, 8), (32, 16)), (1, 3))
+    x = torch.rand((2, 32, 32, 3), generator=torch.Generator().manual_seed(0))
+    kw = dict(layout="NCHW", fuse_bn=True, fuse_bn_min_hw=0,
+              batch_flexible=True, device="cpu")
+    want_fn, want_p = ttc.compile_graph(graph, dtype, **kw)
+    want = want_fn(want_p, x)
+
+    calls = {}
+    for name in ("bottleneck_s1", "bottleneck_chain",
+                 "bottleneck_chain_plain"):
+        def counted(*a, _f=getattr(bn, name), _n=name, **k):
+            calls[_n] = calls.get(_n, 0) + 1
+            return _f(*a, **k)
+        monkeypatch.setattr(bn, name, counted)
+    # The binding a card gets, on CPU tensors.
+    rule = ttc.bottleneck_units
+    monkeypatch.setattr(ttc, "bottleneck_units",
+                        lambda dt, dev: rule(dt, torch.device("cuda")))
+    fn, p = ttc.compile_graph(graph, dtype, **kw)
+    ops = _opcodes(fn.graph)
+    units = (ops.count("PALLAS_BN"), ops.count("PALLAS_BN_CHAIN"))
+    assert units == (1, 1)
+    got = fn(p, x)
+    assert (calls.get("bottleneck_s1", 0), calls.get("bottleneck_chain", 0)
+            ) == (units if dtype == torch.bfloat16 else (0, 0))
+    # The wrappers take the plain chain on a CPU tensor: called either way.
+    assert calls["bottleneck_chain_plain"] == units[1]
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
