@@ -24,7 +24,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), ".torch_kernels_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("multi_crop", "dense_s2_block", "roi_sums", "bottleneck",
-           "stem_packed", "pf_stem")
+           "stem_packed", "pf_stem", "clip_standardise")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -23,13 +23,16 @@ the state is a :class:`RppgEngineState`: beside the rings of
 :class:`SignalState`, a :class:`ClipState` ring of each stream's last T
 face crops.  A call crops each of its frames at the face rect from before
 the call (K1 at the net's crop size) and pushes the crops (``bpv.clip``,
-counting ``clip.pushed``); the streams whose ring is full and has had
-``hop`` new crops are read to the host (``bpv.sync.clip_gate``,
-``sync.clip_gate``), their clips standardised and run through the net
-(``bpv.net.physformer``, counting ``clip.runs``); the net's BVP and the
-ring's timestamps become those streams' raw rings, and ``bpv.signal`` is
-the unchanged analysis with the BPM ring pushed where the net ran.  The
-lagged step then runs the landmark nets on the window's last frame only.
+counting ``clip.pushed``; sub-spans ``bpv.clip.crop`` and
+``bpv.clip.push``); the streams whose ring is full and has had ``hop`` new
+crops are read to the host (``bpv.sync.clip_gate``, ``sync.clip_gate``),
+their clips standardised (``bpv.clip.standardise``, the gate included: K8
+``clip_standardise`` for a bf16 net on the card with ``use_pallas``, else
+its plain version) and run through the net (``bpv.net.physformer``,
+counting ``clip.runs``); the net's BVP and the ring's timestamps become
+those streams' raw rings, and ``bpv.signal`` is the unchanged analysis
+with the BPM ring pushed where the net ran.  The lagged step then runs the
+landmark nets on the window's last frame only.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 
 from bp_from_video_tpu_torch import resolve_device
 from bp_from_video_tpu_torch.config import EngineConfig, ModelType
+from bp_from_video_tpu_torch.kernels import clip_standardise
 from bp_from_video_tpu_torch.kernels import warp as warp_kernel
 from bp_from_video_tpu_torch.models import physformer, warp
 from bp_from_video_tpu_torch.models.runner import (InferenceRunner,
@@ -58,8 +62,6 @@ from bp_from_video_tpu_torch.utils.profiling import count, span
 
 Tensor = torch.Tensor
 _NAN = float("nan")
-# Clips standardised at a time before the rPPG net (f32 scratch).
-_STANDARDISE_ROWS = 8
 
 
 class SignalState(NamedTuple):
@@ -88,21 +90,13 @@ class ClipState(NamedTuple):
 
     def ordered_ts(self) -> Tensor:
         """[S, T] timestamps, oldest first."""
-        return torch.gather(self.ts, 1, _ring_slots(self.head, self.ts))
+        return torch.gather(self.ts, 1, clip_standardise.ring_slots(
+            self.head, self.ts.shape[1] - 1))
 
     def ordered(self, rows: Tensor | None = None) -> Tensor:
         """The crops oldest first, [S, T, C, C, 3] (of ``rows`` only when
         given)."""
-        slots = _ring_slots(self.head, self.ts)
-        if rows is None:
-            rows = torch.arange(slots.shape[0], device=slots.device)
-        return self.crops[rows[:, None], slots[rows]]
-
-
-def _ring_slots(head: Tensor, ts: Tensor) -> Tensor:
-    """[S, T] slots of a clip ring, oldest first."""
-    t = ts.shape[1] - 1
-    return (head[:, None] + torch.arange(t, device=head.device)) % t
+        return clip_standardise.ordered_crops(self.crops, self.head, rows)
 
 
 class EngineState(NamedTuple):
@@ -187,7 +181,7 @@ class Engine:
         self._pairs = list(itertools.combinations(
             range(config.signal.num_signals), 2))
         self._analysis = SignalGraphs(self._analyze)
-        self.rppg = None
+        self.rppg = self.standardise_clips = None
         net = getattr(config, "rppg_net", None)
         if net is not None:
             sc = config.signal
@@ -203,6 +197,14 @@ class Engine:
             self.rppg = physformer.PhysFormer(
                 net, rppg_params, dtype, self.device,
                 use_kernel=config.inference.use_pallas)
+            # K8 takes a bf16 ring on the card; anything else the plain
+            # route, chosen here once.
+            self.standardise_clips = (
+                clip_standardise.clip_standardise
+                if (config.inference.use_pallas
+                    and self.device.type == "cuda"
+                    and dtype == torch.bfloat16)
+                else clip_standardise.clip_standardise_plain)
 
     # -- state ----------------------------------------------------------------
 
@@ -495,10 +497,10 @@ class Engine:
         """The streams the net runs on this call: those whose ring is full
         and has had ``hop`` new crops since the net last ran.  Reads their
         count to the host (one sync) -> (due [S], rows the net runs on
-        (None: every stream, in order), due count, their standardised clips
-        [B, T, C, C, 3]).  ``rows`` pads the due streams to the next size
-        of ``_pow2_ladder(S)``, so a count pays for its power of two and
-        the net sees few shapes."""
+        (None: every stream, in order), due count, their clips
+        standardised by ``standardise_clips``, [B, T, C, C, 3]).  ``rows``
+        pads the due streams to the next size of ``_pow2_ladder(S)``, so a
+        count pays for its power of two and the net sees few shapes."""
         s_n = clip.new.shape[0]
         full = torch.isfinite(clip.ordered_ts()).all(1)
         due = full & (clip.new >= self.config.rppg_net.hop)
@@ -511,17 +513,8 @@ class Engine:
         kk = next(v for v in _pow2_ladder(s_n) if v >= n_due)
         rows = (None if kk == s_n else
                 torch.argsort((~due).to(torch.int8), stable=True)[:kk])
-        x = clip.ordered(rows)
-        dims = tuple(range(1, x.ndim))
-        for part in x.split(_STANDARDISE_ROWS):
-            # (x - mean) / population std in f32, a few clips at a time
-            # (a whole batch in f32 would take 4x the ring's memory); a
-            # constant clip gives zeros.
-            f = part.to(torch.float32)
-            f -= f.mean(dims, keepdim=True)
-            var = f.square().mean(dims, keepdim=True)
-            part.copy_(f.mul_(torch.where(var > 0, torch.rsqrt(var), 0.0)))
-        return due, rows, n_due, x
+        return due, rows, n_due, self.standardise_clips(clip.crops,
+                                                        clip.head, rows)
 
     def _rppg_half(self, state: RppgEngineState, track: TrackState,
                    models: ModelResults, frames_rgb: Tensor,
@@ -535,10 +528,13 @@ class Engine:
         where the net ran)."""
         f_n, s_n = timestamps.shape
         with span("bpv.clip"):
-            crops = self._face_crops(frames_rgb, state.track)
-            clip = self._clip_push(state.clip, crops, timestamps)
+            with span("bpv.clip.crop"):
+                crops = self._face_crops(frames_rgb, state.track)
+            with span("bpv.clip.push"):
+                clip = self._clip_push(state.clip, crops, timestamps)
             count("clip.pushed", f_n * s_n)
-            due, rows, n_due, x = self._clip_input(clip)
+            with span("bpv.clip.standardise"):
+                due, rows, n_due, x = self._clip_input(clip)
         bvp = None
         if n_due:
             count("clip.runs", n_due)

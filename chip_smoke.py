@@ -6,14 +6,15 @@ Phases (each fatal on failure):
 
 1. build the hand-written CUDA kernels from ``bp_from_video_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together);
-2. hold each of the seven kernels against its plain PyTorch version on
+2. hold each of the eight kernels against its plain PyTorch version on
    the card at the flagship shapes (64 streams of 480x640, bf16; K3 at its
    11 launch shapes; K5/K6 at all seven face-mesh stage shapes, K6 also at
    3l's batch of 8; both SASS checked for tensor-core HMMA instructions;
    K4 through both its entries, at the flagship ROI sizes, also weighted
    by the segmenter's skin view read in place; K7 at the physformer cell's
    64 clips of 160 frames, its three stem layers, its SASS checked for
-   warpgroup HGMMA instructions), and time the kernel, the plain version
+   warpgroup HGMMA instructions; K8 on that cell's 64 rings of 160 crops),
+   and time the kernel, the plain version
    and a PyTorch yardstick with CUDA events;
 3. run the flagship ``Engine.batch_step`` (``flagship_config()``) over a
    synthetic pulsing clip long enough to fill the 250-sample ring, with the
@@ -63,7 +64,8 @@ Phases (each fatal on failure):
    (3n) ``physformer_config`` (the published PhysFormer, crop 128, bf16)
    on 3's clip, every stream tracked, two ``batch_step_lagged`` calls of
    160 frames (the ``physformer.chunk160`` cell's call): K7's launches
-   (three a call), the net run on every clip each call, the BVP finite;
+   (three a call), K8's (two a call), the net run on every clip each call,
+   the BVP finite;
 4. run a small f32 config on the card and on the CPU (plain versions) over
    the same clips, with stand-ins, with a compiled face graph, with both
    earlier presets, with ``multistream`` (plain and lagged, composed),
@@ -940,6 +942,68 @@ def check_pf_stem(gen, dev, b: int = 64, t: int = 160):
                 bound_ms=tot["bound"],
                 bound_by="operations (stem1, stem2), bytes (stem0)",
                 library_ms=tot["lib"])
+
+
+def check_clip_standardise(gen, dev, b: int = 64, t: int = 160,
+                           c: int = 128):
+    """K8 at the ``physformer.chunk160`` cell's shape: rings of 160 crops of
+    128x128 for 64 streams (values k / 255, heads rotated, the spare slot
+    NaN), every clip standardised; held to the plain route (one bf16 ulp of
+    each value, values under 2^-6 counted as 2^-6: the two routes sum the
+    f32 statistics in other orders), two launches bit-equal, a flat clip
+    all zeros; timed beside its bytes bound (the ring read twice, the
+    clips written once), the plain route and one ``F.layer_norm`` of the
+    clips already gathered (no gather: a yardstick only)."""
+    from bp_from_video_tpu_torch.kernels import clip_standardise as cs
+    crops = torch.randint(0, 256, (b, t + 1, c, c, 3), dtype=torch.uint8,
+                          generator=gen, device=dev).to(torch.bfloat16)
+    crops.div_(255.0)
+    crops[:, t] = float("nan")
+    crops[b // 2, :t] = 0.5
+    head = torch.randint(0, t, (b,), generator=gen, device=dev)
+    frame = c * c * 3
+    parts = cs.plan(dev.index or 0, b, t, frame, 8)
+    got = cs.clip_standardise(crops, head)
+    again = cs.clip_standardise(crops, head)
+    want = cs.clip_standardise_plain(crops, head)
+    torch.cuda.synchronize()
+    same = torch.equal(got, again)
+    del again
+    flat = not bool(got[b // 2].any())
+    gap = (got.float() - want.float()).abs()
+    tol = torch.exp2(torch.floor(torch.log2(
+        want.float().abs().clamp_min(2.0 ** -6))) - 7)
+    bad = int((gap > tol).sum())
+    err = float(gap.max())
+    differ = float((got != want).float().mean())
+    finite = bool(torch.isfinite(got.float()).all())
+    del gap, tol, got, want
+    log(f"K8 clip_standardise {b} clips x {t} frames of {c}x{c}x3 "
+        f"(blocks a clip: statistics {parts[0]}, output {parts[1]}): "
+        f"max_abs_err {err:.3g}, {bad} values past one bf16 ulp, "
+        f"{100 * differ:.4f}% of values differ; two launches bit-equal "
+        f"{same}; flat clip all zero {flat}; finite {finite}")
+    if bad or not same or not flat or not finite:
+        fail("clip_standardise disagrees with its plain version")
+    nbytes = 3.0 * b * t * frame * 2
+    ms = time_ms(lambda: cs.clip_standardise(crops, head), reps=10, inner=5)
+    pl = time_ms(lambda: cs.clip_standardise_plain(crops, head), reps=3,
+                 inner=1, warm=1)
+    x = cs.ordered_crops(crops, head)
+    lib = time_ms(lambda: torch.nn.functional.layer_norm(
+        x, x.shape[1:], eps=0.0), reps=3, inner=1, warm=1)
+    del x
+    bnd, by = bound_ms(nbytes, 0.0, BF16_TENSOR_FLOPS)
+    log(f"K8 times: kernel {ms:.4f} ms (2 launches), plain {pl:.4f} ms, "
+        f"layer_norm of the gathered clips {lib:.4f} ms, bound {bnd:.4f} ms "
+        f"({by}; {100 * bnd / ms:.1f}% of it)")
+    del crops
+    torch.cuda.empty_cache()
+    return dict(name="clip_standardise", route="cuda",
+                source="bp_from_video_tpu_torch/csrc/clip_standardise.cu",
+                replaces="none (the JAX package has no PhysFormer)",
+                max_abs_err=err, ms=ms, plain_ms=pl, bound_ms=bnd,
+                bound_by=by, library_ms=lib)
 
 
 # The face mesh's seven stages: (spatial size, C, D).
@@ -2567,6 +2631,7 @@ def physformer_path(clip, dev, card: str) -> collections.Counter:
     state = tracked_state(engine, h, w, torch.ones(s, dtype=torch.bool,
                                                    device=dev))
     runs0 = profiling.profiler.counts.get("clip.runs", 0)
+    std0 = profiling.profiler.counts.get("clip_std.launches", 0)
     zero_counters()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2577,6 +2642,8 @@ def physformer_path(clip, dev, card: str) -> collections.Counter:
     secs = time.perf_counter() - t
     launches = {k: fn.launches for k, fn in counters().items()}
     runs = profiling.profiler.counts.get("clip.runs", 0) - runs0
+    launches["clip_standardise"] = (
+        profiling.profiler.counts.get("clip_std.launches", 0) - std0)
     bvp = state.signals.raw_y[:, 0]
     log(f"[3n] physformer_config S={s} {h}x{w} bf16, 2 calls of "
         f"batch_step_lagged F={f} on {card}: {secs:.2f} s (host clock, the "
@@ -2586,6 +2653,9 @@ def physformer_path(clip, dev, card: str) -> collections.Counter:
     if launches["pf_stem"] != 3 * 2:
         fail(f"[3n] K7 launched {launches['pf_stem']} times over 2 calls, "
              "not three a call")
+    if launches["clip_standardise"] != 2 * 2:
+        fail(f"[3n] K8 launched {launches['clip_standardise']} times over 2 "
+             "calls, not twice a call")
     if runs != 2 * s or not bool(torch.isfinite(bvp).all()):
         fail("[3n] the net did not run on every clip each call, or its BVP "
              "is not finite")
@@ -3263,7 +3333,8 @@ def main():
     flag_engine = Engine(flagship_config())
     kernels = [check_multi_crop(gen, dev), check_stem_packed(gen, dev),
                check_dense_s2_block(flag_engine, gen, dev),
-               check_roi(gen, dev), k5, k6, check_pf_stem(gen, dev)]
+               check_roi(gen, dev), k5, k6, check_pf_stem(gen, dev),
+               check_clip_standardise(gen, dev)]
     # K1 and K3 at the multistream batches: 8 streams a step, and 32 (8
     # streams x 4 frames) in the lagged step.
     for s in (8, 8 * LAGGED):
@@ -3321,7 +3392,8 @@ def main():
     t = time.perf_counter()
     total.update(physformer_path(clip, dev, card))
     log(f"phase 3n: PhysFormer through batch_step_lagged ran its stem on K7, "
-        f"three launches a call ({time.perf_counter() - t:.1f} s)")
+        f"three launches a call, and its clips' standardisation on K8, two "
+        f"a call ({time.perf_counter() - t:.1f} s)")
     torch.cuda.empty_cache()
     for phase, name in (("3e", "butter_welch_face"), ("3g", "dual_roi_ls"),
                         ("3h", "ptt_filtered"), ("3f", "segmenter_fir")):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels K1 (multi_crop), K2 (stem_packed), K3
 (dense_s2_block), K4 (roi_sums and roi_samples), K5 (bottleneck_s1), K6
-(bottleneck_chain) and K7 (pf_stem, with PhysFormer on it against the
-published net) against their plain PyTorch versions on the card, the
+(bottleneck_chain), K7 (pf_stem, with PhysFormer on it against the
+published net) and K8 (clip_standardise, and the engine's route to it)
+against their plain PyTorch versions on the card, the
 device feeder's pinned, asynchronous uploads against its CPU batches, the
 rotated crops (shear, both methods, and exact) card against CPU, the
 hybrid rotation gate's one host sync a step, the gates' sync counters
@@ -25,6 +26,7 @@ from bp_from_video_tpu_torch.config import (PhysFormerConfig,
                                             SignalColorChannel)
 from bp_from_video_tpu_torch.kernels import block as tbk
 from bp_from_video_tpu_torch.kernels import bottleneck as tbn
+from bp_from_video_tpu_torch.kernels import clip_standardise as tcs
 from bp_from_video_tpu_torch.kernels import pf_stem as tps
 from bp_from_video_tpu_torch.kernels import roi as trk
 from bp_from_video_tpu_torch.kernels import stem as tsk
@@ -864,6 +866,135 @@ def test_cuda_physformer_engine_takes_k7_for_bf16_alone(cuda_device, dtype):
     assert bool(torch.isfinite(got).all())
     tol = 1e-4 if dtype == "float32" else 0.03
     assert float((got - want).abs().max() / want.abs().max()) < tol
+
+
+def _clip_ring(device, s, t, c, seed):
+    """A bf16 ring of ``s`` streams of ``t`` crops of c x c x 3 values
+    k / 255 as K1 writes them, each stream at a level and contrast of its
+    own, heads rotated, the spare slot T NaN (never to be read)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    u8 = torch.randint(0, 256, (s, t + 1, c, c, 3), dtype=torch.uint8,
+                       generator=g, device=device)
+    keep = torch.randint(16, 256, (s, 1, 1, 1, 1), generator=g,
+                         device=device)
+    crops = ((u8 * keep // 255 + torch.randint(0, 256 - 16, (s, 1, 1, 1, 1),
+                                               generator=g, device=device))
+             .clamp_(max=255).to(torch.bfloat16) / 255.0)
+    crops[:, t] = float("nan")
+    head = torch.randint(0, t, (s,), generator=g, device=device)
+    return crops, head
+
+
+def _std_tol(want):
+    """One bf16 ulp of each plain value, counting |values| under 2^-6 as
+    2^-6: the two routes sum the f32 statistics in other orders, which
+    moves a value by ~1e-6, more than a bf16 ulp only that close to 0."""
+    mag = want.float().abs().clamp_min(2.0 ** -6)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("s,t,c,rows,seed", [
+    (64, 160, 128, None, 21),           # physformer.chunk160
+    (4, 160, 128, [2], 22),              # B = 1
+    (5, 160, 128, [4, 0, 2], 23),        # B = 3
+    (11, 160, 128, [9, 1, 3, 4, 6, 7, 10, 0], 24),   # B = 8
+    (3, 7, 4, [2, 0], 25),              # frames of 48 values (16-byte loads)
+    (5, 9, 6, None, 26),                # frames of 108 values (one a load)
+])
+def test_cuda_clip_standardise_matches_plain(cuda_device, s, t, c, rows,
+                                             seed):
+    """K8 against the plain route (gather, f32 standardisation) on rings
+    with rotated heads and a NaN spare slot, every stream or a subset of
+    rows: every element within one bf16 ulp of the plain's value there
+    (``_std_tol``), few elements apart at all, none of the spare slot
+    read."""
+    crops, head = _clip_ring(cuda_device, s, t, c, seed)
+    r = None if rows is None else torch.tensor(rows, device=cuda_device)
+    want = tcs.clip_standardise_plain(crops, head, r)
+    got = tcs.clip_standardise(crops, head, r)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert got.is_contiguous() and bool(torch.isfinite(got.float()).all())
+    gap = (got.float() - want.float()).abs()
+    assert int((gap > _std_tol(want)).sum()) == 0, float(gap.max())
+    assert float((got != want).float().mean()) < 1e-2
+
+
+def test_cuda_clip_standardise_is_deterministic_and_zero_on_a_flat_clip(
+        cuda_device):
+    """A constant clip gives exact zeros; two launches on the same ring give
+    the same bits (no atomics in K8's statistics)."""
+    crops, head = _clip_ring(cuda_device, 8, 160, 128, 27)
+    crops[3, :160] = 0.5
+    rows = torch.tensor([3, 5, 0, 7], device=cuda_device)
+    a = tcs.clip_standardise(crops, head, rows)
+    b = tcs.clip_standardise(crops, head, rows)
+    full = tcs.clip_standardise(crops, head)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert not bool(a[0].any()) and not bool(full[3].any())
+
+
+@pytest.mark.parametrize("case", ["float32 ring", "ring on the CPU",
+                                  "head on the CPU", "int32 rows"])
+def test_cuda_clip_standardise_rejects_what_the_kernel_does_not_take(
+        cuda_device, case):
+    crops, head = _clip_ring(cuda_device, 2, 8, 8, 28)
+    rows = None
+    if case == "float32 ring":
+        crops = crops.float()
+    elif case == "ring on the CPU":
+        crops = crops.cpu()
+    elif case == "head on the CPU":
+        head = head.cpu()
+    else:
+        rows = torch.tensor([1], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        tcs.clip_standardise(crops, head, rows)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_physformer_engine_takes_k8_for_bf16_alone(cuda_device, dtype):
+    """``physformer_config`` on the card with ``use_pallas``: a bf16 engine
+    binds K8 when it is built and launches it twice a call in which clips
+    fall due (``clip_std.launches``); a float32 one binds the plain route
+    and launches none."""
+    import dataclasses
+
+    from bp_from_video_tpu_torch.config import physformer_config
+    from bp_from_video_tpu_torch.runtime.engine import Engine
+    from bp_from_video_tpu_torch.utils import profiling
+    net = PhysFormerConfig(num_layers=1, clip_frames=8, hop=8)
+    cfg = physformer_config(2, 96, 128, net)
+    no_files = dict(face_detector_path=None, face_landmarker_path=None,
+                    hand_landmarker_path=None, person_segmenter_path=None,
+                    hand_lm_standin_path=None, palm_det_standin_path=None,
+                    seg_standin_path=None)
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype,
+                              inference=dataclasses.replace(cfg.inference,
+                                                            **no_files))
+    eng = Engine(cfg, device=cuda_device)
+    bf16 = dtype == "bfloat16"
+    assert eng.standardise_clips is (tcs.clip_standardise if bf16 else
+                                     tcs.clip_standardise_plain)
+    st = eng.init_state()
+    rect = torch.tensor([[64.0, 48.0, 60.0, 60.0, 0.0],
+                         [60.0, 44.0, 56.0, 48.0, 0.3]], device=cuda_device)
+    st = st._replace(track=st.track._replace(
+        face_rect=rect, face_tracking=torch.ones(2, dtype=torch.bool,
+                                                 device=cuda_device)))
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    frames = torch.randint(0, 256, (8, 2, 3, 96, 128), dtype=torch.uint8,
+                           generator=g, device=cuda_device)
+    ts = ((torch.arange(8, dtype=torch.float32, device=cuda_device) + 1)
+          / 30.0)[:, None].repeat(1, 2)
+    counts = profiling.profiler.counts
+    n, runs = counts.get("clip_std.launches", 0), counts.get("clip.runs", 0)
+    st, _ = eng.batch_step_lagged(eng.params, st, frames, ts)
+    torch.cuda.synchronize()
+    assert counts.get("clip.runs", 0) == runs + 2
+    assert counts.get("clip_std.launches", 0) == n + (2 if bf16 else 0)
+    assert bool(torch.isfinite(st.signals.raw_y[:, 0]).all())
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
