@@ -29,7 +29,7 @@ from bp_from_video_tpu_torch import resolve_device
 from bp_from_video_tpu_torch.config import (
     CaptureConfig, EngineConfig, RunningMode, SignalColorChannel,
     SignalProcessingMethod, SignalSpectrumTransform, physformer_config,
-    preset_configs)
+    physmamba_config, preset_configs)
 
 ROI_PRESETS = {
     "cheek": cfg_mod.FACE_CHEEK_CONFIG,
@@ -38,6 +38,11 @@ ROI_PRESETS = {
     "wrist": cfg_mod.HAND_WRIST_CONFIG,
     "palm": cfg_mod.HAND_PALM_CONFIG,
 }
+
+
+# The presets whose one signal is a learned rPPG net's BVP.
+RPPG_PRESETS = {"physformer": physformer_config,
+                "physmamba": physmamba_config}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,10 +54,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="webcam index or video path; several sources -> "
                         "multi-stream (default: webcam 0)")
     p.add_argument("--preset", choices=sorted(preset_configs())
-                   + ["physformer"],
+                   + sorted(RPPG_PRESETS),
                    help="start from a named benchmark configuration "
                         "(physformer: the PhysFormer rPPG net on 160-frame "
-                        "clips of the face, config.physformer_config)")
+                        "clips of the face, config.physformer_config; "
+                        "physmamba: the PhysMamba rPPG net on 128-frame "
+                        "clips, config.physmamba_config)")
     p.add_argument("--pipelined", action="store_true",
                    help="threaded capture pipeline with drop-oldest "
                         "hand-off (reference pbp.py mode)")
@@ -173,8 +180,8 @@ def _source(s: str):
 
 
 def config_from_args(args) -> tuple[EngineConfig, list[CaptureConfig]]:
-    if args.preset == "physformer":
-        cfg = physformer_config(1)
+    if args.preset in RPPG_PRESETS:
+        cfg = RPPG_PRESETS[args.preset](1)
     else:
         cfg = preset_configs()[args.preset] if args.preset else EngineConfig()
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
+from typing import ClassVar
 
 
 class ModelType(enum.Enum):
@@ -160,6 +161,7 @@ class PhysFormerConfig:
     ring is full and ``hop`` crops have come in since it last ran
     (``hop == clip_frames``: non-overlapping chunks)."""
 
+    module: ClassVar[str] = "physformer"   # models/<module>.py builds it
     dim: int = 96
     ff_dim: int = 144
     num_heads: int = 4
@@ -192,6 +194,47 @@ class PhysFormerConfig:
         """Tokens along each spatial side: the crop after the stem's three
         halvings and the patch embedding."""
         return self.crop // (8 * self.patch)
+
+
+@dataclasses.dataclass(frozen=True)
+class PhysMambaConfig:
+    """PhysMamba (Luo et al., arXiv:2409.12031) as rPPG-Toolbox
+    (arXiv:2210.00716) runs it: a 3-D conv stem, a slow pathway at T/4 and
+    a fast one at T/2, three temporal-difference Mamba blocks each (a
+    ``CDC_T`` conv, a bidirectional selective scan over every (t, h, w)
+    token, channel attention), lateral merges of the fast pathway into
+    the slow one, over ``clip_frames``-frame chunks of ``crop``-square face
+    crops (``models/physmamba.py``).  The engine keeps and gates its clip
+    ring as for :class:`PhysFormerConfig`."""
+
+    module: ClassVar[str] = "physmamba"    # models/<module>.py builds it
+    slow_dim: int = 64
+    fast_dim: int = 32
+    d_state: int = 16         # N: the scan's state per channel
+    d_conv: int = 4           # the scan's causal depthwise conv
+    expand: int = 2           # d_inner = expand * dim
+    reduction: int = 2        # channel attention's hidden = dim / it
+    head_dim: int = 48        # the head's upsampling convs' width
+    theta: float = 0.5        # CDC_T's temporal centre difference
+    clip_frames: int = 128
+    crop: int = 128
+    hop: int = 128
+
+    def __post_init__(self):
+        # Slow at T/4; the stem and the blocks halve the crop five times.
+        if self.clip_frames % 4 or self.crop % 32:
+            raise ValueError(
+                f"clip_frames={self.clip_frames}, crop={self.crop}: need "
+                "multiples of 4 and 32")
+        if self.slow_dim % self.reduction or self.fast_dim % self.reduction:
+            raise ValueError(f"reduction={self.reduction} must divide "
+                             "slow_dim and fast_dim")
+        if not 0 < self.hop <= self.clip_frames:
+            raise ValueError(f"hop={self.hop}: expected 1..clip_frames")
+
+    def dt_rank(self, dim: int) -> int:
+        """R of a pathway of ``dim`` channels: ceil(dim / 16)."""
+        return math.ceil(dim / 16)
 
 
 # --- Inference configuration -------------------------------------------------
@@ -480,20 +523,22 @@ class RppgEngineConfig(EngineConfig):
     (``runtime/engine.py``).  A subclass, so that every other
     configuration keeps the JAX package's fields one for one."""
 
-    rppg_net: PhysFormerConfig = PhysFormerConfig()
+    # Any net config whose ``module`` names a ``models/`` module giving
+    # ``init_params(cfg, seed)`` and ``Net(cfg, params, dtype, device,
+    # use_kernel)``.
+    rppg_net: PhysFormerConfig | PhysMambaConfig = PhysFormerConfig()
 
 
-def physformer_config(streams: int = 64, h: int = 480, w: int = 640,
-                      net: PhysFormerConfig = PhysFormerConfig()
-                      ) -> RppgEngineConfig:
-    """PhysFormer on the port's path: the face landmarker alone (the mesh
-    on the fused kernels, as in :func:`flagship_config`) keeps the face
-    rect; K1 crops it at ``net.crop`` into each stream's clip ring; the
-    net's BVP is the one signal, detrended, band-passed over 0.75-2.5 Hz
-    (rPPG-Toolbox's post-processing band; order 2, the even order nearest
-    its order-1 design, as the port's filter takes even orders only) and
-    read by an rFFT peak.  No ROI, no hand landmarker, no detector;
-    bf16."""
+def rppg_config(net: PhysFormerConfig | PhysMambaConfig, streams: int = 64,
+                h: int = 480, w: int = 640) -> RppgEngineConfig:
+    """An rPPG net ``net`` on the port's path: the face landmarker alone
+    (the mesh on the fused kernels, as in :func:`flagship_config`) keeps
+    the face rect; K1 crops it at ``net.crop`` into each stream's clip
+    ring; the net's BVP is the one signal, detrended, band-passed over
+    0.75-2.5 Hz (rPPG-Toolbox's post-processing band; order 2, the even
+    order nearest its order-1 design, as the port's filter takes even
+    orders only) and read by an rFFT peak.  No ROI, no hand landmarker, no
+    detector; bf16."""
     return RppgEngineConfig(
         frame_height=h, frame_width=w, num_streams=streams,
         compute_dtype="bfloat16", rppg_net=net,
@@ -507,6 +552,20 @@ def physformer_config(streams: int = 64, h: int = 480, w: int = 640,
             hand_landmarker=False, use_pallas=True, fuse_dw_pw=False,
             pack_s2d=0, fused_stem=True, fused_trunk=True,
             fused_bn_min_hw=96))
+
+
+def physformer_config(streams: int = 64, h: int = 480, w: int = 640,
+                      net: PhysFormerConfig = PhysFormerConfig()
+                      ) -> RppgEngineConfig:
+    """PhysFormer on the port's path (:func:`rppg_config`)."""
+    return rppg_config(net, streams, h, w)
+
+
+def physmamba_config(streams: int = 64, h: int = 480, w: int = 640,
+                     net: PhysMambaConfig = PhysMambaConfig()
+                     ) -> RppgEngineConfig:
+    """PhysMamba on the port's path (:func:`rppg_config`)."""
+    return rppg_config(net, streams, h, w)
 
 
 def preset_config(name: str, streams: int = 64, h: int = 480, w: int = 640

@@ -327,3 +327,7 @@ class PhysFormer:
             y = self.stem_apply(x)
         with span("bpv.pf.trunk"):
             return self.trunk_apply(y)
+
+
+# The net the engine builds for a ``PhysFormerConfig`` (its ``module``).
+Net = PhysFormer

@@ -18,25 +18,26 @@ track state it takes) and ``bpv.signal`` (``bpv.roi``, ``bpv.sample``,
 on a call replayed as a CUDA graph, ``runtime/signal_graph.py``); each call
 counts ``steps`` (``utils/profiling``).
 
-With an rPPG net (``config.RppgEngineConfig``, e.g. ``physformer_config``)
-the state is a :class:`RppgEngineState`: beside the rings of
-:class:`SignalState`, a :class:`ClipState` ring of each stream's last T
-face crops.  A call crops each of its frames at the face rect from before
-the call (K1 at the net's crop size) and pushes the crops (``bpv.clip``,
-counting ``clip.pushed``; sub-spans ``bpv.clip.crop`` and
+With an rPPG net (``config.RppgEngineConfig``, e.g. ``physformer_config``
+or ``physmamba_config``) the state is a :class:`RppgEngineState`: beside
+the rings of :class:`SignalState`, a :class:`ClipState` ring of each
+stream's last T face crops.  A call crops each of its frames at the face
+rect from before the call (K1 at the net's crop size) and pushes the crops
+(``bpv.clip``, counting ``clip.pushed``; sub-spans ``bpv.clip.crop`` and
 ``bpv.clip.push``); the streams whose ring is full and has had ``hop`` new
 crops are read to the host (``bpv.sync.clip_gate``, ``sync.clip_gate``),
 their clips standardised (``bpv.clip.standardise``, the gate included: K8
 ``clip_standardise`` for a bf16 net on the card with ``use_pallas``, else
-its plain version) and run through the net (``bpv.net.physformer``,
-counting ``clip.runs``); the net's BVP and the ring's timestamps become
-those streams' raw rings, and ``bpv.signal`` is the unchanged analysis
-with the BPM ring pushed where the net ran.  The lagged step then runs the
-landmark nets on the window's last frame only.
+its plain version) and run through the net (``bpv.net.<module>``, the
+module its config names, counting ``clip.runs``); the net's BVP and the
+ring's timestamps become those streams' raw rings, and ``bpv.signal`` is
+the unchanged analysis with the BPM ring pushed where the net ran.  The
+lagged step then runs the landmark nets on the window's last frame only.
 """
 
 from __future__ import annotations
 
+import importlib
 import itertools
 import math
 from typing import NamedTuple
@@ -47,7 +48,7 @@ from bp_from_video_tpu_torch import resolve_device
 from bp_from_video_tpu_torch.config import EngineConfig, ModelType
 from bp_from_video_tpu_torch.kernels import clip_standardise
 from bp_from_video_tpu_torch.kernels import warp as warp_kernel
-from bp_from_video_tpu_torch.models import physformer, warp
+from bp_from_video_tpu_torch.models import warp
 from bp_from_video_tpu_torch.models.runner import (InferenceRunner,
                                                    ModelResults, TrackState,
                                                    _pow2_ladder, _seed,
@@ -160,8 +161,9 @@ class Engine:
 
     With an rPPG net configured (``config.rppg_net`` of a
     ``config.RppgEngineConfig``) the engine also builds the net
-    (``self.rppg``, from ``rppg_params``: unfolded weights as
-    ``models/physformer.init_params`` lays them out, seeded when None); its
+    (``self.rppg``: ``models/<module>.Net`` of the module the net's config
+    names, from ``rppg_params``: unfolded weights as that module's
+    ``init_params`` lays them out, seeded when None); its
     state is a :class:`RppgEngineState`, which adds the clip ring to
     :class:`EngineState`'s fields, and the net's BVP is each stream's one
     signal: no ROI may be configured."""
@@ -192,11 +194,13 @@ class Engine:
                 raise ValueError(
                     f"signal_max_samples={sc.signal_max_samples}: the "
                     f"net's BVP fills the raw ring, {net.clip_frames}")
+            mod = importlib.import_module(
+                f"bp_from_video_tpu_torch.models.{net.module}")
             if rppg_params is None:
-                rppg_params = physformer.init_params(net, _seed("rppg"))
-            self.rppg = physformer.PhysFormer(
-                net, rppg_params, dtype, self.device,
-                use_kernel=config.inference.use_pallas)
+                rppg_params = mod.init_params(net, _seed("rppg"))
+            self.rppg = mod.Net(net, rppg_params, dtype, self.device,
+                                use_kernel=config.inference.use_pallas)
+            self._net_span = f"bpv.net.{net.module}"
             # K8 takes a bf16 ring on the card; anything else the plain
             # route, chosen here once.
             self.standardise_clips = (
@@ -522,7 +526,7 @@ class Engine:
                    ) -> tuple[RppgEngineState, StepOutputs]:
         """After the runner: F frames [F, S, ...] cropped at the face rects
         from before the call and pushed (``bpv.clip``), the net on the
-        streams due (``bpv.net.physformer``), its BVP and the ring's
+        streams due (``bpv.net.<module>``), its BVP and the ring's
         timestamps as the raw ring of each such stream's one signal, then
         the analysis on every stream (``bpv.signal``; the BPM ring pushed
         where the net ran)."""
@@ -538,7 +542,7 @@ class Engine:
         bvp = None
         if n_due:
             count("clip.runs", n_due)
-            with span("bpv.net.physformer"):
+            with span(self._net_span):
                 bvp = self.rppg(x)
         sig_st = state.signals
         with span("bpv.signal"):
